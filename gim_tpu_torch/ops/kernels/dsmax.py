@@ -1,0 +1,294 @@
+"""Fused dual-softmax mutual matching (kernel K1, CUDA C++ for Hopper).
+
+Port of `gim_tpu/ops/pallas_kernels/dsmax.py`. For features f0 (B, L, C)
+and f1 (B, S, C), sim = f0 f1^T / T and
+
+    conf = softmax_rows(sim) * softmax_cols(sim)
+
+followed by the row-wise argmax, its value, and the mutual check. The
+kernel (`csrc/dsmax.cu`) never writes the (L, S) matrix. It runs two
+sweeps over sim tiles, each launched once for the whole batch:
+
+- `dsmax_stats`: row max and row sum-exp, plus column max / sum-exp
+  partials for each tile of `BLOCK_M` rows (the TPU's `_stats_kernel`);
+- `dsmax_argmax`: the log-domain argmax on both sides, rows resident and
+  columns as per-row-tile partials (the TPU's `_argmax_kernel`).
+
+`dual_softmax_mutual` reduces the partials with torch ops between and
+after the sweeps, as the JAX package leaves them to XLA (`dsmax.py:226-
+258`). Each wrapper takes its plain PyTorch version only for CPU tensors;
+for a CUDA tensor it launches its kernel or raises. `LAUNCHES` counts the
+kernel launches.
+
+`dual_softmax_mutual_plain` is the dense recipe (conf materialised one
+pair at a time), an independent reference for tests and the card check.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gim_tpu_torch.ops.kernels.build import load_library
+
+NEG = -1e30
+BLOCK_M = 64          # rows per block; must match BM in csrc/dsmax.cu
+MAX_C = 256           # widest feature the kernel's shared memory is sized for
+
+LAUNCHES = {"dsmax_stats": 0, "dsmax_argmax": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _lib():
+    lib = load_library("dsmax")
+    if not getattr(lib, "_gim_typed", False):
+        lib.dsmax_block_rows.argtypes = []
+        lib.dsmax_block_rows.restype = _I
+        lib.dsmax_stats.argtypes = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                                    _P, _P, _P, _P, _P]
+        lib.dsmax_stats.restype = _I
+        lib.dsmax_argmax.argtypes = [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                                     _I, _I, _P, _P, _P, _P, _P]
+        lib.dsmax_argmax.restype = _I
+        if lib.dsmax_block_rows() != BLOCK_M:
+            raise RuntimeError("csrc/dsmax.cu BM differs from BLOCK_M")
+        lib._gim_typed = True
+    return lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check(f0, f1, m0, m1, *terms):
+    if f0.device.type != "cuda":
+        raise ValueError(f"dsmax kernel needs CUDA tensors, got {f0.device}")
+    if f0.dtype not in _DTYPE_CODE or f1.dtype != f0.dtype:
+        raise TypeError(f"dsmax takes bf16 or float32 features, got "
+                        f"{f0.dtype} and {f1.dtype}")
+    if f0.dim() != 3 or f1.dim() != 3 or f0.shape[0] != f1.shape[0] \
+            or f0.shape[2] != f1.shape[2]:
+        raise ValueError(f"bad feature shapes {tuple(f0.shape)}, "
+                         f"{tuple(f1.shape)}")
+    B, L, C = f0.shape
+    S = f1.shape[1]
+    if C % 16 or C > MAX_C:
+        raise ValueError(f"feature width {C} must be a multiple of 16 and "
+                         f"at most {MAX_C}")
+    if tuple(m0.shape) != (B, L) or tuple(m1.shape) != (B, S):
+        raise ValueError(f"mask shapes {tuple(m0.shape)}, {tuple(m1.shape)} "
+                         f"do not match {(B, L)}, {(B, S)}")
+    for t in (m0, m1, *terms):
+        if t.dtype != torch.float32 or t.device != f0.device:
+            raise TypeError("masks and terms must be float32 on the "
+                            "features' device")
+    for t in (f0, f1, m0, m1, *terms):
+        if not t.is_contiguous():
+            raise ValueError("dsmax takes contiguous tensors only")
+    return B, L, S, C
+
+
+# ---------------------------------------------------------------------------
+# plain versions (same outputs, same row tiling)
+# ---------------------------------------------------------------------------
+
+def _sim(f0b: torch.Tensor, f1b: torch.Tensor, inv_t: float) -> torch.Tensor:
+    return (f0b.float() @ f1b.float().T) * inv_t
+
+
+def _row_tiles(x: torch.Tensor, block: int) -> torch.Tensor:
+    """(L, S) -> (L/block, block, S), rows past L padded with NEG."""
+    L, S = x.shape
+    n = _cdiv(L, block)
+    pad = x.new_full((n * block - L, S), NEG)
+    return torch.cat([x, pad]).view(n, block, S)
+
+
+def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int = BLOCK_M):
+    """Plain version of the stats sweep: (rmax, rsum) (B, L) and column
+    partials (cpmax, cpsum) (B, L/block, S), float32."""
+    B, L, _ = f0.shape
+    S = f1.shape[1]
+    n = _cdiv(L, block)
+    rmax = f0.new_empty((B, L), dtype=torch.float32)
+    rsum = torch.empty_like(rmax)
+    cpmax = f0.new_empty((B, n, S), dtype=torch.float32)
+    cpsum = torch.empty_like(cpmax)
+    for b in range(B):                 # one (L, S) matrix alive at a time
+        sim = _sim(f0[b], f1[b], inv_t)
+        sim_r = sim.masked_fill((m1[b] <= 0)[None, :], NEG)
+        rmax[b] = sim_r.amax(1)
+        rsum[b] = torch.exp(sim_r - rmax[b][:, None]).sum(1)
+        sim_c = _row_tiles(sim.masked_fill((m0[b] <= 0)[:, None], NEG), block)
+        cpmax[b] = sim_c.amax(1)
+        cpsum[b] = torch.exp(sim_c - cpmax[b][:, None]).sum(1)
+    return rmax, rsum, cpmax, cpsum
+
+
+def dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
+                       block: int = BLOCK_M):
+    """Plain version of the argmax sweep: (jbest int32, jval) (B, L) and
+    column partials (ipidx int32, ipval) (B, L/block, S). Ties go to the
+    first index (torch.max returns the first maximal index)."""
+    B, L, _ = f0.shape
+    S = f1.shape[1]
+    n = _cdiv(L, block)
+    jbest = f0.new_empty((B, L), dtype=torch.int32)
+    jval = f0.new_empty((B, L), dtype=torch.float32)
+    ipidx = f0.new_empty((B, n, S), dtype=torch.int32)
+    ipval = f0.new_empty((B, n, S), dtype=torch.float32)
+    base = torch.arange(n, device=f0.device)[:, None] * block
+    for b in range(B):
+        sim = _sim(f0[b], f1[b], inv_t)
+        br = torch.where(m1[b][None, :] > 0, 2.0 * sim - colterm[b][None, :],
+                         NEG)
+        v, j = br.max(1)
+        jval[b], jbest[b] = v, j.int()
+        bc = torch.where(m0[b][:, None] > 0, 2.0 * sim - rowterm[b][:, None],
+                         NEG)
+        v, i = _row_tiles(bc, block).max(1)
+        ipval[b], ipidx[b] = v, (i + base).int()
+    return jbest, jval, ipidx, ipval
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def dsmax_stats(f0, f1, m0, m1, inv_t: float):
+    """Stats sweep: kernel on CUDA tensors, plain version on CPU tensors."""
+    if f0.device.type == "cpu":
+        return dsmax_stats_plain(f0, f1, m0, m1, inv_t)
+    B, L, S, C = _check(f0, f1, m0, m1)
+    n = _cdiv(L, BLOCK_M)
+    rmax = torch.empty((B, L), dtype=torch.float32, device=f0.device)
+    rsum = torch.empty_like(rmax)
+    cpmax = torch.empty((B, n, S), dtype=torch.float32, device=f0.device)
+    cpsum = torch.empty_like(cpmax)
+    lib = _lib()
+    with torch.cuda.device(f0.device):
+        stream = torch.cuda.current_stream(f0.device).cuda_stream
+        err = lib.dsmax_stats(_DTYPE_CODE[f0.dtype], f0.data_ptr(),
+                              f1.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+                              float(inv_t), B, L, S, C, rmax.data_ptr(),
+                              rsum.data_ptr(), cpmax.data_ptr(),
+                              cpsum.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"dsmax_stats launch failed: CUDA error {err}")
+    LAUNCHES["dsmax_stats"] += 1
+    return rmax, rsum, cpmax, cpsum
+
+
+def dsmax_argmax(f0, f1, m0, m1, colterm, rowterm, inv_t: float):
+    """Argmax sweep: kernel on CUDA tensors, plain version on CPU tensors."""
+    if f0.device.type == "cpu":
+        return dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t)
+    B, L, S, C = _check(f0, f1, m0, m1, colterm, rowterm)
+    if tuple(colterm.shape) != (B, S) or tuple(rowterm.shape) != (B, L):
+        raise ValueError("colterm must be (B, S) and rowterm (B, L)")
+    n = _cdiv(L, BLOCK_M)
+    jbest = torch.empty((B, L), dtype=torch.int32, device=f0.device)
+    jval = torch.empty((B, L), dtype=torch.float32, device=f0.device)
+    ipidx = torch.empty((B, n, S), dtype=torch.int32, device=f0.device)
+    ipval = torch.empty((B, n, S), dtype=torch.float32, device=f0.device)
+    lib = _lib()
+    with torch.cuda.device(f0.device):
+        stream = torch.cuda.current_stream(f0.device).cuda_stream
+        err = lib.dsmax_argmax(_DTYPE_CODE[f0.dtype], f0.data_ptr(),
+                               f1.data_ptr(), m0.data_ptr(), m1.data_ptr(),
+                               colterm.data_ptr(), rowterm.data_ptr(),
+                               float(inv_t), B, L, S, C, jbest.data_ptr(),
+                               jval.data_ptr(), ipidx.data_ptr(),
+                               ipval.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"dsmax_argmax launch failed: CUDA error {err}")
+    LAUNCHES["dsmax_argmax"] += 1
+    return jbest, jval, ipidx, ipval
+
+
+def _masks(f0, f1, mask0, mask1):
+    B, L, _ = f0.shape
+    S = f1.shape[1]
+    m0 = (torch.ones((B, L), dtype=torch.float32, device=f0.device)
+          if mask0 is None else mask0.float().contiguous())
+    m1 = (torch.ones((B, S), dtype=torch.float32, device=f0.device)
+          if mask1 is None else mask1.float().contiguous())
+    return m0, m1
+
+
+def dual_softmax_mutual(f0: torch.Tensor, f1: torch.Tensor,
+                        temperature: float,
+                        mask0: torch.Tensor | None = None,
+                        mask1: torch.Tensor | None = None):
+    """Fused dual-softmax mutual matching over a batch of pairs.
+
+    f0: (B, L, C), f1: (B, S, C) pre-scaled features (1/sqrt(C) applied),
+    bf16 or float32; masks: (B, L)/(B, S) bool. Returns (j_best (B, L)
+    int64, conf (B, L) float32, mutual (B, L) bool): the column argmax of
+    conf per row, its value, and whether the match is mutual. Invalid rows
+    get conf 0 and mutual False. Same as dense `dual_softmax` + row/column
+    argmax, without materialising (L, S).
+    """
+    f0 = f0.contiguous()
+    f1 = f1.contiguous()
+    L = f0.shape[1]
+    S = f1.shape[1]
+    m0, m1 = _masks(f0, f1, mask0, mask1)
+    inv_t = 1.0 / temperature
+
+    rmax, rsum, cpmax, cpsum = dsmax_stats(f0, f1, m0, m1, inv_t)
+    cmax = cpmax.amax(1)                                      # (B, S)
+    csum = (cpsum * torch.exp(cpmax - cmax[:, None])).sum(1)
+    # log-domain terms; masked slots get 0 (their sim is NEG in the sweeps)
+    rowterm = torch.where(m0 > 0, rmax + torch.log(rsum), 0.0).contiguous()
+    colterm = torch.where(m1 > 0, cmax + torch.log(csum.clamp_min(1e-30)),
+                          0.0).contiguous()
+
+    jbest, jval, ipidx, ipval = dsmax_argmax(f0, f1, m0, m1, colterm,
+                                             rowterm, inv_t)
+    # column side: first row tile holding the maximum, then its row
+    k = ipval.argmax(1, keepdim=True)                         # (B, 1, S)
+    ibest = ipidx.gather(1, k)[:, 0].long()                   # (B, S)
+    jbest = jbest.long()
+    conf = torch.exp(jval - rowterm)       # the winner's conf, exp once
+    mutual = (ibest.gather(1, jbest.clamp(0, S - 1))
+              == torch.arange(L, device=f0.device)[None])
+    if mask0 is not None:
+        valid = m0 > 0
+        conf = torch.where(valid, conf, 0.0)
+        mutual = mutual & valid
+    return jbest, conf, mutual
+
+
+def dual_softmax_mutual_plain(f0: torch.Tensor, f1: torch.Tensor,
+                              temperature: float,
+                              mask0: torch.Tensor | None = None,
+                              mask1: torch.Tensor | None = None):
+    """Dense reference for `dual_softmax_mutual`: the (L, S) conf matrix of
+    one pair at a time (dual_softmax, then row and column argmax), in
+    float32. Same outputs and contract."""
+    from gim_tpu_torch.ops.matching import dual_softmax
+
+    B, L, _ = f0.shape
+    jbest = torch.empty((B, L), dtype=torch.long, device=f0.device)
+    conf = torch.empty((B, L), dtype=torch.float32, device=f0.device)
+    mutual = torch.empty((B, L), dtype=torch.bool, device=f0.device)
+    rows = torch.arange(L, device=f0.device)
+    for b in range(B):
+        sim = f0[b].float() @ f1[b].float().T
+        m0 = None if mask0 is None else mask0[b:b + 1]
+        m1 = None if mask1 is None else mask1[b:b + 1]
+        c = dual_softmax(sim[None], temperature, m0, m1)[0]
+        v, j = c.max(1)
+        ibest = c.argmax(0)
+        mu = ibest[j] == rows
+        if mask0 is not None:
+            v = torch.where(mask0[b], v, 0.0)
+            mu = mu & mask0[b]
+        jbest[b], conf[b], mutual[b] = j, v, mu
+    return jbest, conf, mutual
