@@ -162,22 +162,3 @@ class LoFTRMatcher(nn.Module):
             "expec_f": torch.cat([coords_n, std[..., None]], -1),
             "hw_c": (hc, wc),
         }
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights, drawn on the CPU from `generator` so a seed
-    gives the same model on every device: LeCun-normal kernels (the flax
-    default the JAX package initialises with), zero biases, identity
-    normalisation layers and running statistics."""
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            w = mod.weight
-            fan_in = w[0].numel()
-            w.copy_(torch.randn(w.shape, generator=generator)
-                    / math.sqrt(fan_in))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
-            mod.reset_parameters()
-    return model

@@ -1,8 +1,9 @@
-"""Attention primitives: elu+1 linear attention and full attention.
+"""Attention primitives: elu+1 linear attention, full attention, sdpa.
 
-Port of `gim_tpu/ops/attention.py:21-106` (reference semantics: LoFTR
+Port of `gim_tpu/ops/attention.py:21-120` (reference semantics: LoFTR
 LinearAttention and FullAttention, ref networks/loftr/submodules/
-attentions.py:14-81). Layouts are [N, L, H, D] as in the JAX package.
+attentions.py:14-81; torch SDPA for the ViTs). Layouts are [N, L, H, D]
+as in the JAX package, and [..., H, L, D] for `sdpa`.
 
 The JAX package has two forms of linear attention: the head-split
 `linear_attention` and `linear_attention_chan`, which computes the same
@@ -60,3 +61,18 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_mask is not None:
         a = torch.nan_to_num(a)  # rows fully masked
     return torch.einsum("nlsh,nshd->nlhd", a, v)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled dot-product attention in [..., L, D] layout (the torch SDPA
+    contract): softmax(q k^T / sqrt(D)) v, computed in q's dtype.
+    mask: bool, broadcast to [..., L, S], True = attend."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    qk = (q @ k.transpose(-1, -2)) * scale
+    if mask is not None:
+        qk = qk.masked_fill(~mask, float("-inf"))
+    a = torch.softmax(qk, dim=-1)
+    if mask is not None:
+        a = torch.nan_to_num(a)
+    return a @ v

@@ -20,7 +20,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "gim_tpu_torch"
-SOURCES = ("dsmax",)
+SOURCES = ("dsmax", "refiner", "flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
