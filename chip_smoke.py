@@ -22,14 +22,15 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
 5. fused against dense matching on the card at 320 px in float32, TF32 off;
 6. kernel K2 (refiner_block, the fused ConvRefiner block) against its
    plain version at the four main-path shapes of gim_roma in bf16 and on
-   a ragged float32 case (C 40 -> 56), with timings of kernel, plain
-   version and the switches-off block (PyTorch's depthwise conv, BN, ReLU,
-   1x1 conv)
-   beside the bound;
-7. kernel K3 (flash_attention) against its plain version at the ViT-L
-   (32, 2305, 64) and coordinate-decoder (16, 2304, 128) shapes in bf16
-   and on ragged float32 cases, with `F.scaled_dot_product_attention`'s
-   time as the library yardstick (the port never calls it);
+   ragged cases (C 40 -> 56, widths 200 and 203; 192 -> 144) in float32
+   and bf16, with timings of kernel, plain version and the switches-off
+   block (PyTorch's depthwise conv, BN, ReLU, 1x1 conv) beside the bound;
+7. kernel K3 (flash_attention) against its plain version on the strided
+   q, k, v views of a qkv split at the ViT-L (2, 16, 2305, 64) and
+   coordinate-decoder (2, 8, 2304, 128) shapes in bf16 and on ragged
+   cases (contiguous and strided, float32 and bf16), with
+   `F.scaled_dot_product_attention`'s time on the same views as the
+   library yardstick (the port never calls it);
 8. main path of gim_roma: `Matcher("gim_roma")` at full width (DINOv2
    ViT-L/14, VGG19-bn, GP, 5-block decoder, five ConvRefiners, 672 ->
    1344 px, 5000 balanced samples) at the operating point (bf16,
@@ -541,14 +542,24 @@ class Smoke:
                       for t in K.fold_block_params(blk[0], blk[1], blk[3])]
             return blk, folded
 
-        # ragged float32 case: C != C_out, H and W not tile multiples
-        x = torch.randn(1, 40, 37, 200, device=dev, generator=g)
-        _, f = params(40, 56, torch.float32)
-        got, want = K.fused_dw_block(x, *f), K.fused_dw_block_plain(x, *f)
-        err = float((got - want).abs().max())
-        print(f"  f32 ragged (1, 40, 37, 200) -> 56: max abs err {err:.3e} "
-              f"(limit {TOL_F32} + {TOL_F32} |plain|)")
-        assert torch.allclose(got, want, rtol=TOL_F32, atol=TOL_F32)
+        # ragged cases: C != C_out, H and W not tile multiples, an odd
+        # width (rows not 16-byte aligned: element loads, not cp.async) and
+        # the widest C with a wide C_out (the most shared memory)
+        for shape, C_out in (((1, 40, 37, 200), 56), ((1, 40, 37, 203), 56),
+                             ((1, 192, 21, 72), 144)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(shape, device=dev, generator=g).to(dtype)
+                _, f = params(shape[1], C_out, dtype)
+                got = K.fused_dw_block(x, *f)
+                want = K.fused_dw_block_plain(x.float(),
+                                              *(t.float() for t in f))
+                err = float((got.float() - want).abs().max())
+                rtol, atol = ((TOL_F32, TOL_F32) if dtype == torch.float32
+                              else (RTOL_BF16, ATOL_BF16))
+                print(f"  {str(dtype)[6:]} ragged {shape} -> {C_out}: max abs "
+                      f"err {err:.3e} (limit {atol} + {rtol} |plain|)")
+                assert torch.allclose(got.float(), want, rtol=rtol,
+                                      atol=atol), (shape, dtype)
 
         tot = dict(ms=0.0, plain_ms=0.0, off_ms=0.0, bound_ms=0.0)
         max_err = 0.0
@@ -575,10 +586,12 @@ class Smoke:
             print(f"  bf16 {shape} -> {C}: max abs err {err:.3e} against "
                   f"the plain version in float32 on the same inputs (limit "
                   f"{ATOL_BF16} + {RTOL_BF16} |plain|), {err_p:.3e} against "
-                  f"the plain version in bf16; kernel {t_k:.3f} ms, "
-                  f"plain {t_p:.3f} ms, switches-off block (PyTorch depthwise "
-                  f"conv + BN + ReLU + 1x1) {t_off:.3f} ms, bound {b_ms:.3f} ms "
-                  f"({b_by}); {nbytes / t_k / 1e6:.0f} GB/s [{self.card}]")
+                  f"the plain version in bf16")
+            print(f"    kernel {t_k:.3f} ms ({nbytes / t_k / 1e6:.0f} GB/s, "
+                  f"{t_k / b_ms:.2f}x its bound {b_ms:.3f} ms ({b_by})), "
+                  f"plain {t_p:.3f} ms, switches-off block (PyTorch "
+                  f"depthwise conv + BN + ReLU + 1x1) {t_off:.3f} ms "
+                  f"[{self.card}]")
             assert ok, shape
             max_err = max(max_err, err)
             n = HIDDEN_BLOCKS
@@ -590,7 +603,8 @@ class Smoke:
         print(f"  per gim_roma call ({HIDDEN_BLOCKS} blocks at each shape): "
               f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
               f"switches-off blocks {tot['off_ms']:.3f} ms, bound "
-              f"{tot['bound_ms']:.3f} ms [{self.card}]")
+              f"{tot['bound_ms']:.3f} ms; kernel / bound "
+              f"{tot['ms'] / tot['bound_ms']:.2f} [{self.card}]")
         self.kernels["refiner_block"] = {
             "name": "refiner_block", "route": "cuda",
             "source": "gim_tpu_torch/csrc/refiner.cu",
@@ -610,25 +624,43 @@ class Smoke:
         dev = torch.device("cuda")
         g = torch.Generator(device=dev).manual_seed(7)
 
-        def qkv(shape, dtype, qscale):
-            q, k, v = (torch.randn(shape, device=dev, generator=g)
-                       for _ in range(3))
-            return (q * qscale).to(dtype), k.to(dtype), v.to(dtype)
+        def qkv(B, H, N, D, dtype, qscale):
+            """q, k, v as the strided (B, H, N, D) views that a ViT block's
+            qkv split gives (models/dinov2.py): row stride 3 H D."""
+            t = torch.randn(B, N, 3, H, D, device=dev, generator=g)
+            t[:, :, 0] *= qscale
+            q, k, v = t.to(dtype).permute(2, 0, 3, 1, 4).unbind(0)
+            return q, k, v
 
         for D in K.HEAD_DIMS:
-            q, k, v = qkv((3, 157, D), torch.float32, 3.0)
+            x = torch.randn(3, 1, 3, 157, D, device=dev, generator=g)
+            q, k, v = x[0] * 3.0, x[1], x[2]
             got, want = K.flash_sdpa(q, k, v), K.flash_sdpa_plain(q, k, v)
             err = float((got - want).abs().max())
-            print(f"  f32 ragged (3, 157, {D}): max abs err {err:.3e} "
-                  f"(limit {TOL_ATTN_F32} + {TOL_ATTN_F32} |plain|)")
+            print(f"  f32 ragged contiguous (1, 3, 157, {D}): max abs err "
+                  f"{err:.3e} (limit {TOL_ATTN_F32} + {TOL_ATTN_F32} |plain|)")
             assert torch.allclose(got, want, rtol=TOL_ATTN_F32,
                                   atol=TOL_ATTN_F32)
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = qkv(2, 3, 157, D, dtype, 3.0)
+                got = K.flash_sdpa(q, k, v)
+                want = K.flash_sdpa_plain(q.float(), k.float(), v.float())
+                err = float((got.float() - want).abs().max())
+                rtol, atol = ((TOL_ATTN_F32, TOL_ATTN_F32)
+                              if dtype == torch.float32
+                              else (RTOL_BF16, ATOL_BF16))
+                print(f"  {str(dtype)[6:]} ragged strided (2, 3, 157, {D}) "
+                      f"views of qkv (2, 157, 3, 3, {D}): max abs err "
+                      f"{err:.3e} (limit {atol} + {rtol} |plain|)")
+                assert torch.allclose(got.float(), want, rtol=rtol,
+                                      atol=atol)
 
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         max_err = 0.0
         by = set()
         for (G, N, D), n in FLASH_SHAPES:
-            q, k, v = qkv((G, N, D), torch.bfloat16, 2.0)
+            B, H = 2, G // 2
+            q, k, v = qkv(B, H, N, D, torch.bfloat16, 2.0)
             got = K.flash_sdpa(q, k, v)
             plain = K.flash_sdpa_plain(q, k, v)
             want = K.flash_sdpa_plain(q.float(), k.float(), v.float())
@@ -637,24 +669,26 @@ class Smoke:
             err_p = float((got.float() - plain.float()).abs().max())
             ok = torch.allclose(got.float(), want, rtol=RTOL_BF16,
                                 atol=ATOL_BF16)
+            merged = got.transpose(1, 2).reshape(B, N, H * D)
+            view = merged.data_ptr() == got.data_ptr()
             del plain, want
-            q4, k4, v4 = (t.view(2, G // 2, N, D) for t in (q, k, v))
             t_k = cuda_ms(lambda: K.flash_sdpa(q, k, v), 10)
             t_p = cuda_ms(lambda: K.flash_sdpa_plain(q, k, v), 10)
-            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
                           10)
             flops = 4.0 * G * N * N * D
             b_ms, b_by = bound(flops, 4.0 * G * N * D * 2)
             by.add(b_by)
-            print(f"  bf16 ({G}, {N}, {D}): max abs err {err:.3e} against "
-                  f"the plain version in float32 on the same inputs (limit "
-                  f"{ATOL_BF16} + {RTOL_BF16} |plain|), {err_p:.3e} against "
-                  f"the plain version in bf16 (bf16 scores); kernel "
-                  f"{t_k:.3f} ms, "
-                  f"plain {t_p:.3f} ms, F.scaled_dot_product_attention "
-                  f"{t_l:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
-                  f"{flops / t_k / 1e9:.1f} TFLOP/s [{self.card}]")
-            assert ok, (G, N, D)
+            print(f"  bf16 strided ({B}, {H}, {N}, {D}): max abs err "
+                  f"{err:.3e} against the plain version in float32 on the "
+                  f"same inputs (limit {ATOL_BF16} + {RTOL_BF16} |plain|), "
+                  f"{err_p:.3e} against the plain version in bf16 (bf16 "
+                  f"scores); merge of the heads is a view: {view}")
+            print(f"    kernel {t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
+                  f"{t_k / b_ms:.2f}x its bound {b_ms:.3f} ms ({b_by}), "
+                  f"{t_k / t_l:.2f}x F.scaled_dot_product_attention "
+                  f"{t_l:.3f} ms), plain {t_p:.3f} ms [{self.card}]")
+            assert ok and view, (G, N, D)
             max_err = max(max_err, err)
             tot["ms"] += n * t_k
             tot["plain_ms"] += n * t_p
@@ -663,7 +697,8 @@ class Smoke:
         print(f"  per gim_roma call (24 ViT-L + 5 decoder attentions): "
               f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
               f"library {tot['library_ms']:.3f} ms, bound "
-              f"{tot['bound_ms']:.3f} ms [{self.card}]")
+              f"{tot['bound_ms']:.3f} ms; kernel / library "
+              f"{tot['ms'] / tot['library_ms']:.3f} [{self.card}]")
         self.kernels["flash_attention"] = {
             "name": "flash_attention", "route": "cuda",
             "source": "gim_tpu_torch/csrc/flash.cu",

@@ -1,8 +1,7 @@
 // K3: flash (online-softmax) attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_flash_kernel` in gim_tpu/ops/pallas_kernels/
-// flash.py (via `flash_sdpa`). For q, k, v of shape (G, N, D), G = batch x
-// heads folded,
+// flash.py (via `flash_sdpa`). For q, k, v of shape (B, H, N, D),
 //   o = softmax(q k^T / sqrt(D)) v,
 // unmasked self-attention, without writing the (N, N) matrix to device
 // memory. Semantics kept from the TPU kernel: the running row max and row
@@ -10,28 +9,42 @@
 // the P V product; key columns past N get -1e30 (not -inf) before the
 // max and exp; o = acc / l is written in q's dtype.
 //
-// Grid (query tile of 64, G). A block loads its 64 query rows once and
-// loops over key/value tiles of 64 rows in shared memory; the loop inside
-// the block takes the place of the TPU grid's sequential key axis.
-// Ragged edges are masked inside the kernel: query rows past N load as
-// zeros and are not stored, key rows past N load as zeros and their
-// scores are -1e30. No padded copy of q, k or v is made, and every key
-// tile up to N is visited (the tile sizes are fixed here, so there is no
-// block-size rounding that could skip a tail tile).
+// Layouts. q, k and v are strided (B, H, N, D) views with unit inner
+// stride, such as the qkv split of a ViT block gives (row stride 3 C,
+// head stride D); o is written through its own strides, which the caller
+// sets to a (B, N, H, D) buffer so that the merge of the heads is a view.
+// No operand is copied or padded: query rows past N are not stored, key
+// rows past N are masked.
 //
-// What bounds it. 4 G N^2 D FLOP (at the ViT-L shape G = 32, N = 2305,
-// D = 64: 4.35e10 FLOP, 0.044 ms at 989 TFLOP/s bf16) against 4 G N D
-// elements of traffic (38 MB), so it is bound by operations. bf16 inputs
-// take the tensor cores through `mma.sync.m16n8k16` (bf16 in, float32
-// accumulate) in the FlashAttention-2 arrangement: four warps, each owning
-// 16 query rows, keep Q fragments, the S tile, the online statistics and
-// the O accumulator in registers, so S and P never touch shared memory;
-// the S fragment layout is reused as the A operand of P V. K and V tiles
-// are loaded synchronously (no cp.async/TMA ring), and V's B fragments
-// are gathered with 16-bit shared loads: overlapping loads with products
-// (wgmma + TMA) is what a faster version has to add. float32 inputs take
-// a plain FMA path in full float32 (no TF32), for checks on the card.
+// What bounds it. 4 B H N^2 D FLOP (at the ViT-L shape B H = 32, N =
+// 2305, D = 64: 4.35e10 FLOP, 0.044 ms at 989 TFLOP/s bf16) against
+// 4 B H N D elements of traffic (38 MB, 0.011 ms), so it is bound by the
+// tensor cores, and next by the softmax's exp2 and FMA work between the
+// products. The bf16 kernel is FlashAttention-3's arrangement, kept
+// simple:
+//   - one producer warp issues TMA loads (4-D tensor maps over the strided
+//     views, 128-byte swizzle, rows past N zero-filled) of Q once and of
+//     K and V tiles of 128 keys into a ring of 4 (D = 64) or 3 (D = 128)
+//     stages tracked by mbarriers; `setmaxnreg` moves its registers to
+//     the consumers;
+//   - two consumer warpgroups own 64 query rows each (128 per block).
+//     S = Q K^T is one wgmma.m64n128k16 per 16 of D, both operands in
+//     shared memory; P, cast to bf16, is the register A operand of
+//     O += P V, wgmma.m64nDk16 with V read from shared memory through the
+//     transpose bit (V row-major is MN-major for B). Each turn issues
+//     S_j = Q K_j^T and O += P_{j-1} V_{j-1};
+//   - the online softmax (log2 domain, on the accumulator fragments in
+//     registers, one FMA and one ex2 per score; the -1e30 mask only on the
+//     last key tile) of S_j runs while the warpgroup's own P V is still in
+//     flight, and the two warpgroups take turns issuing (named barriers),
+//     so that one's softmax also runs beside the other's products.
+// What is left: at D = 64 the exp2s alone (16 a clock per SM) take as long
+// as the products, the last key tile of N = 2305 holds one key, and the
+// grid's last wave is partial.
+// float32 inputs take a plain FMA path in full float32 (no TF32), for
+// checks on the card.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,25 +53,210 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // key rows per tile
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Strides in elements of (B, H, N) for q, k, v and o; the last stride is 1.
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: TMA + wgmma, one producer warp and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS_BF16 = 128;  // 4 warps x 16 query rows
+constexpr int BQ = 128;           // query rows per block
+constexpr int BK = 128;           // key rows per tile
+constexpr int CONSUMERS = 2;      // warpgroups of 64 query rows
+constexpr int THREADS_BF16 = 128 * (CONSUMERS + 1);
+constexpr int ROW = 128;          // bytes per swizzled row: 64 bf16 columns
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// Shared memory, offsets from a 1024-byte aligned base. Each operand tile
+// is D / 64 panels of (rows x 64 columns), 128-byte rows, 128-byte swizzle
+// (what TMA writes and wgmma reads with layout type 1).
+template <int D>
+struct Smem {
+  static constexpr int P = D / 64;
+  static constexpr int STAGES = D == 64 ? 4 : 3;   // K/V ring depth
+  static constexpr int Q = 0;
+  static constexpr int K = Q + P * BQ * ROW;
+  static constexpr int V = K + STAGES * P * BK * ROW;
+  static constexpr int BAR = V + STAGES * P * BK * ROW;
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// Coordinate slots (1..3) of n, h and b in a tensor map; slot 0 is D.
+struct MapPos {
+  int n, h, b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Block until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Load rows [n0, n0 + rows) of head (b, h), columns [64 p, 64 p + 64), for
+// p < D / 64, into consecutive panels of `panel_bytes` at dst.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, int panel_bytes,
+                                         const CUtensorMap* map, MapPos pos,
+                                         uint32_t bar, int n0, int h, int b) {
+  const int c1 = pos.n == 1 ? n0 : pos.h == 1 ? h : b;
+  const int c2 = pos.n == 2 ? n0 : pos.h == 2 ? h : b;
+  const int c3 = pos.n == 3 ? n0 : pos.h == 3 ? h : b;
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    tma_load_4d(dst + p * panel_bytes, map, bar, 64 * p, c1, c2, c3);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
+// lbo: byte stride between 64-column panels along MN (MN-major operands);
+// sbo: byte stride between 8-row groups (1024 for 128-byte rows).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// D (64 x 128) (+)= A (64 x 16) . B (128 x 16)^T, A and B K-major in
+// 128-byte-swizzled shared memory; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64) += A (64 x 16, bf16 registers) . B (16 x 64), B MN-major in
+// 128-byte-swizzled shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128) += A (64 x 16, bf16 registers) . B (16 x 128), B MN-major in
+// 128-byte-swizzled shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x in one MUFU.EX2, flushing denormals to zero: exp2f adds range
+// handling that the softmax does not need (its results are cast to bf16).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -66,172 +264,283 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo)
-         | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Copy rows [row0, row0 + 64) of one (N, D) matrix into shared memory
-// (row stride LD), zero-filling rows at or past N. 16-byte vectors.
-template <int D, int LD>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
-                                               int row0, int N) {
-  constexpr int VECS = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * VECS; idx += blockDim.x) {
-    const int r = idx / VECS, v = idx - r * VECS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < N)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D
-                                            + v * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + v * 8) = val;
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across this point.
+template <int N>
+__device__ __forceinline__ void fence_operands(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (*r)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// S (64 x BK) = Q K^T for this warpgroup's 64 rows, D / 16 steps; both
+// operands K-major, 16 columns = 32 bytes within a 128-byte swizzle row.
+template <int D>
+__device__ __forceinline__ void qk_product(float* sc, uint32_t qa,
+                                           uint32_t ka) {
+  const uint64_t dq = desc_sw128(qa, 16, 1024), dk = desc_sw128(ka, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {   // offsets in 16-byte units
+    const uint32_t qoff = ((kk / 4) * BQ * ROW + (kk % 4) * 32) >> 4;
+    const uint32_t koff = ((kk / 4) * BK * ROW + (kk % 4) * 32) >> 4;
+    wgmma_ss_m64n128(sc, dq + qoff, dk + koff, kk > 0);
   }
+}
+
+// O (64 x D) += P V, 16 keys per step; V is MN-major, its 64-column
+// panels BK rows apart.
+template <int D>
+__device__ __forceinline__ void pv_product(float* acc, const uint32_t (*pa)[4],
+                                   uint32_t va) {
+  const uint64_t dv = desc_sw128(va, BK * ROW, 1024);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = dv + ((kk * 16 * ROW) >> 4);
+    if constexpr (D == 64)
+      wgmma_rs_m64n64(acc, pa[kk], db);
+    else
+      wgmma_rs_m64n128(acc, pa[kk], db);
+  }
+}
+
+// The two consumer warpgroups take turns issuing their products (named
+// barriers 1 and 2, 256 threads each), so that one warpgroup's softmax
+// runs beside the other's products. Warpgroup 1 opens with a pass, and
+// skips its last one, so that every barrier's arrivals match its waits.
+__device__ __forceinline__ void scheduler_open(int wg) {
+  if (wg == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void scheduler_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void scheduler_pass(int wg, int j, int n_tiles) {
+  if (wg == 1 && j == n_tiles - 1) return;
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// Online softmax of one S tile (key tile j) in the accumulator layout.
+// The running max m is kept in the log2 domain (scores times
+// scale log2 e); raw scores take their max first, and p = exp2(s sl2 - m)
+// is one FMA and one exp2 per score. TAIL masks the key columns past N
+// with -1e30 (the last tile only). Updates m and the running sum l,
+// returns alpha = exp2(m_old - m_new) per row and P as bf16 A fragments
+// (keys 16 c + [0, 8) in registers 0, 1 and 16 c + [8, 16) in 2, 3 of
+// step c).
+template <bool TAIL>
+__device__ __forceinline__ void online_softmax(float* sc, int j, int N, int t,
+                                               float sl2, float* m, float* l,
+                                               float* alpha,
+                                               uint32_t (*pa)[4]) {
+  float tmax[2] = {NEG, NEG};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (TAIL && j * BK + (i / 4) * 8 + 2 * t + (i & 1) >= N) sc[i] = NEG;
+    tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m[r], tmax[r] * sl2);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int c = 0; c < BK / 8; ++c) {
+    const float p0 = fast_exp2(fmaf(sc[4 * c + 0], sl2, -m[0]));
+    const float p1 = fast_exp2(fmaf(sc[4 * c + 1], sl2, -m[0]));
+    const float p2 = fast_exp2(fmaf(sc[4 * c + 2], sl2, -m[1]));
+    const float p3 = fast_exp2(fmaf(sc[4 * c + 3], sl2, -m[1]));
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    pa[c / 2][(c & 1) * 2 + 0] = pack_bf16(p0, p1);
+    pa[c / 2][(c & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+}
+
+// online_softmax with the tail mask only where the tile reaches past N.
+__device__ __forceinline__ void softmax_tile(float* sc, int j, int N, int t,
+                                             float sl2, float* m, float* l,
+                                             float* alpha,
+                                             uint32_t (*pa)[4]) {
+  if ((j + 1) * BK > N)
+    online_softmax<true>(sc, j, N, t, sl2, m, l, alpha, pa);
+  else
+    online_softmax<false>(sc, j, N, t, sl2, m, l, alpha, pa);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS_BF16)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int N,
-                  float scale) {
-  constexpr int LD = D + 8;       // bf16 row stride: 16-byte aligned rows
-  constexpr int KSTEPS = D / 16;  // k-steps of Q K^T
-  constexpr int DT = D / 8;       // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + BQ * LD;
-  bf16* vs = ks + BK * LD;
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, MapPos pq,
+                  MapPos pk, MapPos pv, bf16* __restrict__ o, Strides st,
+                  int H, int N, float scale) {
+  using S = Smem<D>;
+  constexpr int P = S::P, STAGES = S::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + S::Q, sk = base + S::K, sv = base + S::V;
+  const uint32_t q_full = base + S::BAR;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * STAGES + s); };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;      // mma group row, thread in group
   const int q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const bf16* qg = q + base;
-  const bf16* kg = k + base;
-  const bf16* vg = v + base;
+  const int b = blockIdx.y / H, h = blockIdx.y - b * H;
+  const int n_tiles = (N + BK - 1) / BK;
+  // warp-uniform to the compiler, so that descriptors live in uniform
+  // registers and successive wgmmas need not wait for each other
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
-  load_rows_bf16<D, LD>(qs, qg, q0, N);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMERS * 4);    // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per k-step
-  uint32_t qa[KSTEPS][4];
-  {
-    const bf16* r0 = qs + (warp * 16 + g) * LD;
-    const bf16* r1 = r0 + 8 * LD;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(r0 + c);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(r1 + c);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + c + 8);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + c + 8);
-    }
-  }
-
-  const float sl2 = scale * LOG2E;   // scores in the log2 domain
-  float m[2] = {NEG, NEG};           // running max of rows g and g + 8
-  float l[2] = {0.f, 0.f};           // this thread's part of the row sums
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int j0 = 0; j0 < N; j0 += BK) {
-    __syncthreads();                 // previous tile's readers are done
-    load_rows_bf16<D, LD>(ks, kg, j0, N);
-    load_rows_bf16<D, LD>(vs, vg, j0, N);
-    __syncthreads();
-
-    // S = Q K^T for 8 n-tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* kr = ks + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16(s[j], qa[kk], b0, b1);
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(q_full, BQ * D * 2);
+      tma_tile<D>(sq, BQ * ROW, &mq, pq, q_full, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty(s), ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(k_full(s), BK * D * 2);
+        tma_tile<D>(sk + s * P * BK * ROW, BK * ROW, &mk, pk, k_full(s),
+                    j * BK, h, b);
+        mbar_expect_tx(v_full(s), BK * D * 2);
+        tma_tile<D>(sv + s * P * BK * ROW, BK * ROW, &mv, pv, v_full(s),
+                    j * BK, h, b);
       }
     }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;                 // column pair in the fragment
+    const uint32_t qa = sq + wg * 64 * ROW;
+    auto ks = [&](int s) { return sk + s * P * BK * ROW; };
+    auto vs = [&](int s) { return sv + s * P * BK * ROW; };
 
-    // scale, mask the columns past N, row max of this tile
-    float tmax[2] = {NEG, NEG};
+    const float sl2 = scale * LOG2E;        // scores in the log2 domain
+    float m[2] = {NEG, NEG};                // running max of rows g, g + 8
+    float l[2] = {0.f, 0.f};                // this thread's part of the sums
+    float acc[D / 2];                       // O: 64 x D over the warpgroup
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j0 + j * 8 + 2 * t + (e & 1);
-        const float val = col < N ? s[j][e] * sl2 : NEG;
-        s[j][e] = val;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], val);
-      }
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[64];                           // S: 64 x BK over the warpgroup
+    uint32_t pa[BK / 16][4];                // P of the previous tile, bf16
     float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-      const float m_new = fmaxf(m[h], tmax[h]);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
 
-    // p = exp(s - m); row sums in float32, P as bf16 A fragments
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(s[j][0] - m[0]);
-      const float p1 = exp2f(s[j][1] - m[0]);
-      const float p2 = exp2f(s[j][2] - m[1]);
-      const float p3 = exp2f(s[j][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      // keys 16 kk + [0, 8) fill a0/a1, keys 16 kk + [8, 16) fill a2/a3
-      pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
+    // tile 0: S, then its softmax (O is still zero: no rescale)
+    scheduler_open(wg);
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full(0), 0);
+    scheduler_wait(wg);
+    fence_operands<64>(sc);
+    wgmma_fence();
+    qk_product<D>(sc, qa, ks(0));
+    wgmma_commit();
+    scheduler_pass(wg, 0, n_tiles);
+    wgmma_wait_all();
+    fence_operands<64>(sc);
+    softmax_tile(sc, 0, N, t, sl2, m, l, alpha, pa);
 
-    // O += P V: B(k = key, n = d), gathered from V's rows
+    // tile j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} as two groups in
+    // this warpgroup's turn; the softmax of S_j runs while P V is still in
+    // flight, into the other P buffer (two buffers, no register copies),
+    // and O is rescaled once P V has landed
+    uint32_t pb[BK / 16][4];
+    auto step = [&](int j, uint32_t (*pin)[4], uint32_t (*pout)[4]) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      mbar_wait(k_full(s), (j / STAGES) & 1);
+      mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);
+      scheduler_wait(wg);
+      fence_operands<64>(sc);
+      fence_operands<D / 2>(acc);
+      fence_operands<BK / 16>(pin);
+      wgmma_fence();
+      qk_product<D>(sc, qa, ks(s));
+      wgmma_commit();
+      pv_product<D>(acc, pin, vs(sp));
+      wgmma_commit();
+      scheduler_pass(wg, j, n_tiles);
+      wgmma_wait_one();
+      fence_operands<64>(sc);
+      softmax_tile(sc, j, N, t, sl2, m, l, alpha, pout);
+      wgmma_wait_all();
+      fence_operands<D / 2>(acc);
+      fence_operands<BK / 16>(pin);
+      if (lane == 0) mbar_arrive(empty(sp));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const bf16* v0 = vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        const bf16* vp = v0 + n * 8;
-        const uint32_t b0 = pack_raw(vp[0], vp[LD]);
-        const uint32_t b1 = pack_raw(vp[8 * LD], vp[9 * LD]);
-        mma_bf16(acc[n], pa[kk], b0, b1);
-      }
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    };
+    int j = 1;
+    for (; j + 1 < n_tiles; j += 2) {
+      step(j, pa, pb);
+      step(j + 1, pb, pa);
     }
-  }
+    if (j < n_tiles) {
+      step(j, pa, pb);
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[c][e] = pb[c][e];
+    }
+    const int sl = (n_tiles - 1) % STAGES;
+    mbar_wait(v_full(sl), ((n_tiles - 1) / STAGES) & 1);
+    fence_operands<D / 2>(acc);
+    fence_operands<BK / 16>(pa);
+    wgmma_fence();
+    pv_product<D>(acc, pa, vs(sl));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands<D / 2>(acc);
+    if (lane == 0) mbar_arrive(empty(sl));
 
-  // full row sums across the four threads of a row group, then o = acc / l
+    // full row sums across the four threads of a row, then o = acc / l
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = 1.f / l[h];
-  }
-  const int r0 = q0 + warp * 16 + g;
-  bf16* og = o + base;
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / l[r];
+    }
+    const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
+    bf16* ob = o + b * st.o[0] + h * st.o[1];
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r0 * D + c) =
-          __floats2bfloat162_rn(acc[n][0] * l[0], acc[n][1] * l[0]);
-    if (r0 + 8 < N)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)(r0 + 8) * D + c) =
-          __floats2bfloat162_rn(acc[n][2] * l[1], acc[n][3] * l[1]);
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = c * 8 + 2 * t;
+      if (r0 < N)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * st.o[2] + col) =
+            __floats2bfloat162_rn(acc[4 * c] * l[0], acc[4 * c + 1] * l[0]);
+      if (r0 + 8 < N)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * st.o[2] + col) =
+            __floats2bfloat162_rn(acc[4 * c + 2] * l[1],
+                                  acc[4 * c + 3] * l[1]);
+    }
   }
 }
 
@@ -239,49 +548,56 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // float32: plain FMA, S and P staged in shared memory
 // ---------------------------------------------------------------------------
 
+constexpr int BQ_F32 = 64;        // query rows per block
+constexpr int BK_F32 = 64;        // key rows per tile
 constexpr int THREADS_F32 = 256;
-constexpr int S_LD = BK + 1;
+constexpr int S_LD = BK_F32 + 1;
 
+// Rows [row0, row0 + 64) of one head (row stride rs) into shared memory
+// (row stride ld), zero-filling rows at or past N.
 template <int D>
 __device__ __forceinline__ void load_rows_f32(float* dst, int ld,
-                                              const float* src, int row0,
-                                              int N) {
+                                              const float* src, long long rs,
+                                              int row0, int N) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS_F32) {
     const int r = idx / D, c = idx - r * D;
-    dst[r * ld + c] = (row0 + r < N) ? src[(size_t)(row0 + r) * D + c] : 0.f;
+    dst[r * ld + c] = (row0 + r < N) ? src[(row0 + r) * rs + c] : 0.f;
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS_F32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int N,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides st, int H, int N, float scale) {
   constexpr int QLD = D + 1;      // odd strides: column reads hit 32 banks
   constexpr int DPT = D / 4;      // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + BQ * QLD;
-  float* vs = ks + BK * QLD;      // row stride D
-  float* ss = vs + BK * D;        // (BQ, S_LD) scores, then p
+  float* ks = qs + BQ_F32 * QLD;
+  float* vs = ks + BK_F32 * QLD;  // row stride D
+  float* ss = vs + BK_F32 * D;    // (BQ_F32, S_LD) scores, then p
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;       // S tile: 4 x 4 per thread
   const int row = tid >> 2, part = tid & 3;     // softmax and O: row owner
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)blockIdx.y * N * D;
+  const int q0 = blockIdx.x * BQ_F32;
+  const int b = blockIdx.y / H, h = blockIdx.y - b * H;
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
 
-  load_rows_f32<D>(qs, QLD, q + base, q0, N);
+  load_rows_f32<D>(qs, QLD, qb, st.q[2], q0, N);
 
   float m_run = NEG, l_run = 0.f;
   float acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
 
-  for (int j0 = 0; j0 < N; j0 += BK) {
+  for (int j0 = 0; j0 < N; j0 += BK_F32) {
     __syncthreads();
-    load_rows_f32<D>(ks, QLD, k + base, j0, N);
-    load_rows_f32<D>(vs, D, v + base, j0, N);
+    load_rows_f32<D>(ks, QLD, kb, st.k[2], j0, N);
+    load_rows_f32<D>(vs, D, vb, st.v[2], j0, N);
     __syncthreads();
 
     float s[4][4];
@@ -290,15 +606,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     for (int c = 0; c < D; ++c) {
-      float a[4], b[4];
+      float a[4], bb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QLD + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * QLD + c];
+      for (int j = 0; j < 4; ++j) bb[j] = ks[(tx + 16 * j) * QLD + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -336,7 +652,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // O[row][part + 4 i] = alpha O + sum_j p[row][j] V[j][part + 4 i]
 #pragma unroll
     for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < BK_F32; ++j) {
       const float p = ss[row * S_LD + j];
 #pragma unroll
       for (int i = 0; i < DPT; ++i)
@@ -344,11 +660,92 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (q0 + row < N) {
-    float* orow = o + base + (size_t)(q0 + row) * D;
+    float* orow = o + b * st.o[0] + h * st.o[1] + (q0 + row) * st.o[2];
     const float inv = 1.f / l_run;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) orow[part + 4 * i] = acc[i] * inv;
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// that the library links with nvcc alone (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A rank-4 bf16 tensor map over one strided (B, H, N, D) view: dimension 0
+// is D (unit stride), dimensions 1..3 are N, H and B ordered by increasing
+// stride (a size-1 dimension takes a stride past the others). The box is
+// 64 columns x `rows` rows of N, 128-byte swizzle; rows past N read as
+// zeros. `pos` receives the coordinate slot of each of n, h, b.
+bool make_map(CUtensorMap* map, MapPos* pos, const void* ptr,
+              const long long* strides, int B, int H, int N, int D,
+              int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  // (size, stride in bytes, which: 0 = n, 1 = h, 2 = b)
+  long long size[3] = {N, H, B};
+  long long sb[3] = {strides[2] * 2, strides[1] * 2, strides[0] * 2};
+  int which[3] = {0, 1, 2};
+  long long span = (long long)D * 2;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] > 1 && size[i] * sb[i] > span) span = size[i] * sb[i];
+  span = (span + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] == 1) sb[i] = span;
+  for (int i = 0; i < 3; ++i)          // sort the three by stride
+    for (int j = 0; j + 1 < 3 - i; ++j)
+      if (sb[j] > sb[j + 1]) {
+        long long ts = sb[j]; sb[j] = sb[j + 1]; sb[j + 1] = ts;
+        long long tz = size[j]; size[j] = size[j + 1]; size[j + 1] = tz;
+        int tw = which[j]; which[j] = which[j + 1]; which[j + 1] = tw;
+      }
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)size[0],
+                        (cuuint64_t)size[1], (cuuint64_t)size[2]};
+  cuuint64_t gstrides[3] = {(cuuint64_t)sb[0], (cuuint64_t)sb[1],
+                            (cuuint64_t)sb[2]};
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    if (which[i] == 0) {
+      box[i + 1] = (cuuint32_t)rows;
+      pos->n = i + 1;
+    } else if (which[i] == 1) {
+      pos->h = i + 1;
+    } else {
+      pos->b = i + 1;
+    }
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, gstrides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename Kernel>
@@ -360,24 +757,32 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int G, int N, float scale, cudaStream_t st) {
-  const dim3 grid((N + BQ - 1) / BQ, G);
+           int B, int H, int N, const Strides& st, float scale,
+           cudaStream_t stream) {
   cudaError_t err;
   if (dtype == 0) {
-    const size_t smem = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(bf16);
+    CUtensorMap mq, mk, mv;
+    MapPos pq, pk, pv;
+    if (!make_map(&mq, &pq, q, st.q, B, H, N, D, BQ)
+        || !make_map(&mk, &pk, k, st.k, B, H, N, D, BK)
+        || !make_map(&mv, &pv, v, st.v, B, H, N, D, BK))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = Smem<D>::BYTES;
     err = prepare(flash_bf16_kernel<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bf16_kernel<D><<<grid, THREADS_BF16, smem, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, scale);
+    const dim3 grid((N + BQ - 1) / BQ, B * H);
+    flash_bf16_kernel<D><<<grid, THREADS_BF16, smem, stream>>>(
+        mq, mk, mv, pq, pk, pv, (bf16*)o, st, H, N, scale);
   } else {
-    const size_t smem =
-        ((size_t)(BQ + BK) * (D + 1) + (size_t)BK * D + (size_t)BQ * S_LD)
-        * sizeof(float);
+    const size_t smem = ((size_t)(BQ_F32 + BK_F32) * (D + 1)
+                         + (size_t)BK_F32 * D + (size_t)BQ_F32 * S_LD)
+                        * sizeof(float);
     err = prepare(flash_f32_kernel<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<D><<<grid, THREADS_F32, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, N,
-        scale);
+    const dim3 grid((N + BQ_F32 - 1) / BQ_F32, B * H);
+    flash_f32_kernel<D><<<grid, THREADS_F32, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, st, H,
+        N, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -385,17 +790,28 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = bf16, 1 = float32.
-// q, k, v, o: contiguous (G, N, D), D in {64, 128}. Returns
-// cudaGetLastError() after the launch (0 = launched); an unsupported D
-// returns cudaErrorInvalidValue without launching.
-
-extern "C" int flash_block_rows() { return BQ; }
+// q, k, v: (B, H, N, D) views, D in {64, 128}, unit stride along D;
+// `strides` holds 12 element strides, (B, H, N) for q, k, v and o in that
+// order. bf16 operands are read by TMA: bases and strides must be
+// multiples of 16 bytes (the wrapper checks). Returns cudaGetLastError()
+// after the launch (0 = launched); what it does not take returns
+// cudaErrorInvalidValue without launching.
 
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* o, int G, int N, int D,
-                               float scale, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(dtype, q, k, v, o, G, N, scale, st);
-  if (D == 128) return launch<128>(dtype, q, k, v, o, G, N, scale, st);
+                               const void* v, void* o, int B, int H, int N,
+                               int D, const long long* strides, float scale,
+                               void* stream) {
+  if (B < 1 || H < 1 || N < 1 || (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64>(dtype, q, k, v, o, B, H, N, st, scale, s);
+  if (D == 128) return launch<128>(dtype, q, k, v, o, B, H, N, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -47,8 +47,10 @@ class Attention(nn.Module):
         qkv = qkv.permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)                       # (B, H, N, hd) views
         if flags.flash_vit():
-            # the kernel takes contiguous (G, N, D): one copy of each view
-            out = flash_sdpa(q.contiguous(), k.contiguous(), v.contiguous())
+            # the kernel reads the strided views in place; on the card its
+            # output is a view of a (B, N, H, hd) buffer, so the merge of
+            # the heads below is a view too
+            out = flash_sdpa(q, k, v)
         else:
             out = sdpa(q, k, v)
         out = out.transpose(1, 2).reshape(B, N, C)

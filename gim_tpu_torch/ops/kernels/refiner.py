@@ -4,8 +4,16 @@ Port of `gim_tpu/ops/pallas_kernels/refiner.py`: one hidden block of the
 DKM/RoMa ConvRefiner at inference, depthwise KxK (K = 5, SAME) with the
 BatchNorm running statistics folded into its taps and bias, ReLU, then the
 1x1 convolution C -> C_out plus bias, in one pass over x (B, C, H, W),
-NCHW. The kernel (`csrc/refiner.cu`) takes bf16 (1x1 on the tensor cores)
-or float32 (FMA), C and C_out up to 192, and masks the ragged edge itself.
+NCHW. The kernel (`csrc/refiner.cu`) takes bf16 (persistent,
+warp-specialised blocks: depthwise in float32 FMAs beside the 1x1 on the
+tensor cores) or float32 (plain FMA), C and C_out up to 192, and masks the
+ragged edge itself.
+
+Argument contract on the card: x, the folded parameters and the output
+are contiguous and of one dtype; any H, W >= 1. In bf16 the kernel reads
+x's rows with 16-byte copies and writes the output with 16-byte stores
+where W is a multiple of 8 and the bases are 16-byte aligned, and with
+element loads and stores otherwise (same results, slower).
 
 `fold_block_params` folds a block's modules into the kernel's inputs.
 `fused_dw_block` takes the plain version `fused_dw_block_plain` (grouped
@@ -84,8 +92,8 @@ def fused_dw_block_plain(x, wdw, bdw, w1, b1):
 def fused_dw_block(x: torch.Tensor, wdw: torch.Tensor, bdw: torch.Tensor,
                    w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
     """x: (B, C, H, W); wdw: (C, 25); bdw: (C,); w1: (C_out, C); b1:
-    (C_out,), all contiguous and of x's dtype on CUDA. Returns
-    (B, C_out, H, W) in x's dtype."""
+    (C_out,), all contiguous and of x's dtype on CUDA (module docstring).
+    Returns a contiguous (B, C_out, H, W) in x's dtype."""
     if x.device.type == "cpu":
         return fused_dw_block_plain(x, wdw, bdw, w1, b1)
     if x.device.type != "cuda":

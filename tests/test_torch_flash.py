@@ -8,6 +8,10 @@ package's `sdpa` and its Pallas `flash_sdpa` (interpret mode), on the
 shapes of tests/test_pallas_kernels.py:123-156 and at D = 128 (the RoMa
 coordinate decoder's head dim).
 
+The argument builder `kernel_args` (what the CUDA kernel is handed: shape
+and strides of the strided q, k, v views) is pure Python and tested here
+without a card.
+
 Tolerances are the JAX package's own for this kernel: float32 rtol = atol
 = 2e-4 (sums in another order, online against two-pass softmax); bf16
 rtol 0.05, atol 0.02 against the float32 reference (bf16 scores and
@@ -75,6 +79,81 @@ def test_masked_sdpa_matches_jax():
     got = sdpa(*(torch.from_numpy(t) for t in (q, k, v)),
                mask=torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _qkv_views(t, H):
+    """q, k, v as `dinov2.Attention` hands them to the kernel: the
+    (B, H, N, D) views of a (B, N, 3 H D) qkv projection."""
+    B, N, C3 = t.shape
+    D = C3 // (3 * H)
+    return t.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("B,H,N,D", [(2, 3, 150, 64), (1, 2, 77, 128)])
+def test_strided_views_match_jax(B, H, N, D):
+    """The wrapper's CPU path on the strided qkv views (row stride 3 H D,
+    head stride D), against JAX's flash_sdpa and sdpa on the same values,
+    with N not a multiple of any block."""
+    qkv = np.random.default_rng(15).standard_normal(
+        (B, N, 3 * H * D)).astype(np.float32)
+    q, k, v = _qkv_views(torch.from_numpy(qkv), H)
+    assert q.stride() == (N * 3 * H * D, D, 3 * H * D, 1)
+    got = K.flash_sdpa(q, k, v).numpy()
+    jq, jk, jv = (jnp.asarray(t.contiguous().numpy()) for t in (q, k, v))
+    want_flash = np.asarray(j_flash(jq, jk, jv, block_q=64, block_k=64))
+    want_sdpa = np.asarray(j_sdpa(jq, jk, jv))
+    assert got.shape == (B, H, N, D)
+    np.testing.assert_allclose(got, want_flash, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, want_sdpa, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 2305, 16, 64), (2, 2304, 8, 128)])
+def test_kernel_args_take_the_model_views(B, N, H, D):
+    """The argument builder accepts the DINOv2 ViT-L and coordinate-decoder
+    views as they are (no copy) and hands the kernel their strides."""
+    t = torch.empty(B, N, 3 * H * D, dtype=torch.bfloat16)
+    q, k, v = _qkv_views(t, H)
+    shape, strides = K.kernel_args(q, k, v)
+    assert shape == (B, H, N, D)
+    row = 3 * H * D
+    assert strides == [N * row, D, row] * 3
+    assert [q.data_ptr(), k.data_ptr(), v.data_ptr()] == [
+        t.data_ptr() + i * H * D * 2 for i in range(3)]
+
+
+def test_kernel_args_take_contiguous():
+    """Contiguous (B, H, N, D) tensors pass as they are."""
+    q = torch.zeros(1, 3, 157, 64)
+    shape, strides = K.kernel_args(q, q, q)
+    assert shape == (1, 3, 157, 64)
+    assert strides == [3 * 157 * 64, 157 * 64, 64] * 3
+
+
+def _non_unit_inner(t):
+    return t[..., ::2]                       # D = 64 at stride 2
+
+
+def _misaligned_base(t):
+    flat = t.reshape(-1)
+    return flat[1:1 + t.numel() // 2].view(1, 2, 64, 64)
+
+
+def _misaligned_rows(t):
+    return t.reshape(-1)[:2 * 64 * 68].view(1, 2, 64, 68)[..., :64]
+
+
+@pytest.mark.parametrize("make,match", [
+    (_non_unit_inner, "unit stride"),
+    (_misaligned_base, "aligned"),
+    (_misaligned_rows, "multiples of 16"),
+])
+def test_kernel_args_reject(make, match):
+    """What TMA cannot read is refused, not copied."""
+    base = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
+    q = make(base)
+    assert q.shape[-1] == 64
+    with pytest.raises(ValueError, match=match):
+        K.kernel_args(q, q, q)
 
 
 def test_wrapper_rejects_other_devices():

@@ -6,7 +6,8 @@ held against that plain version on the card by chip_smoke.py. Here both
 are held against the JAX package's Pallas kernel, run in interpret mode
 as tests/test_pallas_kernels.py runs it, and against the flax block's
 op sequence (dw conv, BatchNorm running statistics, ReLU, 1x1), on the
-five shapes of that file (ragged H, W not a multiple of 128, C_out != C).
+five shapes of that file (ragged H, W not a multiple of 128, C_out != C)
+and an odd width.
 
 Tolerance: rtol = atol = 1e-4 in float32, the JAX package's own for this
 kernel (tests/test_pallas_kernels.py:117-119): the 25 taps and the 1x1
@@ -30,6 +31,7 @@ SHAPES = [
     ((1, 8, 5, 384), 8, 16),         # H smaller than block
     ((1, 16, 12, 200), 16, 16),      # W not a 128-multiple
     ((1, 8, 24, 1344), 8, 12),       # RoMa-like W
+    ((1, 40, 37, 203), 56, 8),       # odd W: rows not 16-byte aligned
 ]
 TOL = 1e-4
 
