@@ -10,9 +10,12 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
 2. build: every kernel of the path, from the sources in the checkout;
 3. kernel K1 (dsmax_stats, dsmax_argmax) against its plain PyTorch
    version at main-path shapes (8 pairs, L = S = 10816 coarse cells of
-   832 px, C = 256, bf16; unmasked, masked, well separated) and on a
-   ragged float32 case, with timings of kernel, plain version and
-   `torch.bmm` of the same f0 f1^T, beside the card's bound;
+   832 px, C = 256, bf16; unmasked, masked, well separated), on a ragged
+   float32 case and on ragged bf16 cases through the wgmma path
+   ((2, 1000, 1300, 256); (1, 70, 90, 32); one partial f0 block against
+   S = 10816, masked), with timings of kernel, plain version and
+   `torch.bmm` of the same f0 f1^T, beside the card's bound (products,
+   exp2s and bytes, whichever is largest);
 4. main path: `Matcher("gim_loftr")` at full width (ResNet-50 FPN, 4
    coarse and 1 fine (self, cross) pairs) with seeded random weights at
    the bench operating point (bf16, fused matching, 2048 matches): 3
@@ -58,9 +61,12 @@ import time
 import traceback
 from pathlib import Path
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W); exp2 on the
+# MUFU: 16 a clock per SM on 132 SMs at the 1.83 GHz that 989 TFLOP/s
+# implies (132 SMs x 4 tensor cores x 1024 bf16 FLOP a clock)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_EX2 = 16 * 132 * PEAK_BF16_FLOPS / (132 * 4 * 1024)
 
 BATCH, IMG = 8, 832
 TOL_BF16, TOL_F32, MIN_AGREE = 1e-2, 1e-4, 0.999
@@ -122,11 +128,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """Least ms for bf16 work: the larger of operations and bytes."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def bound_terms(flops: float, nbytes: float, exps: float = 0.0):
+    """Least ms for each resource of bf16 work: tensor-core products, MUFU
+    exp2s and device-memory bytes."""
+    return {"products": flops / PEAK_BF16_FLOPS * 1e3,
+            "exp2": exps / PEAK_EX2 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+
+
+def bound(flops: float, nbytes: float, exps: float = 0.0):
+    """Least ms for bf16 work: the largest of the terms, and whether
+    operations (products, exp2s) or bytes set it."""
+    terms = bound_terms(flops, nbytes, exps)
+    top = max(terms, key=terms.get)
+    return terms[top], "bytes" if top == "bytes" else "operations"
+
+
+def sweep_costs(B: int, L: int, S: int, C: int, n_blocks: int):
+    """Work of each K1 sweep over (B, L, C) x (B, S, C) bf16 features:
+    product FLOPs, exp2s, bytes (each input read once, each output written
+    once) of the stats and the argmax sweep. Stats take two exp2s per score
+    (row side and column side); argmax none."""
+    flops = 2.0 * B * L * S * C
+    inputs = 2.0 * B * (L + S) * C + 4.0 * B * (L + S)      # features, masks
+    outputs = 2 * 4.0 * B * L + 2 * 4.0 * B * n_blocks * S  # rows, partials
+    return {"dsmax_stats": (flops, 2.0 * B * L * S, inputs + outputs),
+            "dsmax_argmax": (flops, 0.0,
+                             inputs + 4.0 * B * (L + S) + outputs)}
 
 
 class Smoke:
@@ -238,59 +265,115 @@ class Smoke:
                   K.dual_softmax_mutual(r0, r1, 0.1),
                   K.dual_softmax_mutual_plain(r0, r1, 0.1), None, TOL_F32)
 
-        # each sweep against its plain version on the same inputs (masked)
+        def sweeps(label, f0, f1, m0f, m1f, inv_t):
+            """Each sweep against its plain version on the same inputs:
+            log-domain statistics within 1e-3, indices on >= 99.9 % of
+            rows and column partials. Returns the two errors and the
+            argmax sweep's terms."""
+            ks = K.dsmax_stats(f0, f1, m0f, m1f, inv_t)
+            ps = K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t)
+            assert ks[2].shape == ps[2].shape, (ks[2].shape, ps[2].shape)
+            err_s = max(float((ks[0] - ps[0]).abs().max()),
+                        float((ks[1].log() - ps[1].log()).abs().max()),
+                        float((ks[2] - ps[2]).abs().max()),
+                        float((ks[3].log() - ps[3].log()).abs().max()))
+            rowterm = torch.where(m0f > 0, ps[0] + ps[1].log(),
+                                  0.0).contiguous()
+            cmax = ps[2].amax(1)
+            csum = (ps[3] * torch.exp(ps[2] - cmax[:, None])).sum(1)
+            colterm = torch.where(m1f > 0, cmax + csum.clamp_min(1e-30).log(),
+                                  0.0).contiguous()
+            ka = K.dsmax_argmax(f0, f1, m0f, m1f, colterm, rowterm, inv_t)
+            pa = K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm, rowterm,
+                                      inv_t)
+            j_eq = ka[0] == pa[0]
+            i_eq = ka[2] == pa[2]
+            j_share = float(j_eq.float().mean())
+            i_share = float(i_eq.float().mean())
+            err_a = max(float((ka[1] - pa[1])[j_eq].abs().max()),
+                        float((ka[3] - pa[3])[i_eq].abs().max()))
+            print(f"  {label}: dsmax_stats max abs err of the log-domain "
+                  f"statistics {err_s:.3e} (limit 1e-3); dsmax_argmax row "
+                  f"index agrees {j_share:.6f}, column partial index agrees "
+                  f"{i_share:.6f}, max abs err of the maxima {err_a:.3e} "
+                  f"(limits {MIN_AGREE}, 1e-3); {ks[2].shape[1]} row blocks")
+            assert err_s <= 1e-3, label
+            assert j_share >= MIN_AGREE and i_share >= MIN_AGREE, label
+            assert err_a <= 1e-3, label
+            return err_s, err_a, colterm, rowterm
+
+        def timed(label, f0, f1, m0f, m1f, colterm, rowterm, inv_t,
+                  plain=False):
+            """Each sweep's ms beside its bound (products, exp2s, bytes)
+            and torch.bmm of the same f0 f1^T; the plain versions' ms too
+            when `plain`."""
+            b, l, c = f0.shape
+            s = f1.shape[1]
+            n = -(-l // K.block_rows(f0.dtype))
+            t_lib = cuda_ms(lambda: torch.bmm(f0, f1.transpose(1, 2)), 10)
+            out = {}
+            for name, kfn, pfn in (
+                    ("dsmax_stats",
+                     lambda: K.dsmax_stats(f0, f1, m0f, m1f, inv_t),
+                     lambda: K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t)),
+                    ("dsmax_argmax",
+                     lambda: K.dsmax_argmax(f0, f1, m0f, m1f, colterm,
+                                            rowterm, inv_t),
+                     lambda: K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm,
+                                                  rowterm, inv_t))):
+                flops, exps, nbytes = sweep_costs(b, l, s, c, n)[name]
+                t_k = cuda_ms(kfn, 10)
+                t_p = cuda_ms(pfn, 2) if plain else None
+                terms = bound_terms(flops, nbytes, exps)
+                b_ms, b_by = bound(flops, nbytes, exps)
+                top = max(terms, key=terms.get)
+                print(f"  {label} {name}: kernel {t_k:.3f} ms, "
+                      f"{flops / t_k / 1e9:.1f} TFLOP/s, {t_k / b_ms:.2f}x "
+                      f"its bound {b_ms:.3f} ms (set by {top}: products "
+                      f"{terms['products']:.3f}, exp2 {terms['exp2']:.3f}, "
+                      f"bytes {terms['bytes']:.3f}), {t_k / t_lib:.2f}x "
+                      f"torch.bmm {t_lib:.3f} ms"
+                      + (f", plain {t_p:.3f} ms" if plain else "")
+                      + f" [{self.card}]")
+                out[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=t_lib)
+            return out
+
+        # main-path shapes, masked inputs
         m0f, m1f = m0.float(), m1.float()
         inv_t = 10.0
-        ks = K.dsmax_stats(f0, f1, m0f, m1f, inv_t)
-        ps = K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t)
-        err_s = max(float((ks[0] - ps[0]).abs().max()),
-                    float((ks[1].log() - ps[1].log()).abs().max()),
-                    float((ks[2] - ps[2]).abs().max()),
-                    float((ks[3].log() - ps[3].log()).abs().max()))
-        print(f"  dsmax_stats vs plain: max abs err of the log-domain "
-              f"statistics {err_s:.3e} (limit 1e-3)")
-        assert err_s <= 1e-3
+        err_s, err_a, colterm, rowterm = sweeps(
+            f"bf16 masked {tuple(f0.shape)}", f0, f1, m0f, m1f, inv_t)
 
-        rowterm = torch.where(m0f > 0, ps[0] + ps[1].log(), 0.0).contiguous()
-        cmax = ps[2].amax(1)
-        csum = (ps[3] * torch.exp(ps[2] - cmax[:, None])).sum(1)
-        colterm = torch.where(m1f > 0, cmax + csum.clamp_min(1e-30).log(),
-                              0.0).contiguous()
-        ka = K.dsmax_argmax(f0, f1, m0f, m1f, colterm, rowterm, inv_t)
-        pa = K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm, rowterm, inv_t)
-        j_eq = ka[0] == pa[0]
-        i_eq = ka[2] == pa[2]
-        err_a = max(float((ka[1] - pa[1])[j_eq].abs().max()),
-                    float((ka[3] - pa[3])[i_eq].abs().max()))
-        print(f"  dsmax_argmax vs plain: row index agrees "
-              f"{float(j_eq.float().mean()):.6f}, column partial index "
-              f"agrees {float(i_eq.float().mean()):.6f}, max abs err of "
-              f"the maxima {err_a:.3e} (limits {MIN_AGREE}, 1e-3)")
-        assert float(j_eq.float().mean()) >= MIN_AGREE
-        assert float(i_eq.float().mean()) >= MIN_AGREE and err_a <= 1e-3
+        # ragged bf16 cases through the wgmma path: L and S not multiples of
+        # the 128-row blocks or the 64-row tiles; C < 64 (a zero-filled
+        # 64-column box); one partial f0 block against the main path's S
+        ragged = []
+        for b, l, s, c, masked in ((2, 1000, 1300, 256, False),
+                                   (1, 70, 90, 32, True),
+                                   (1, 100, L, 256, True)):
+            r0 = torch.randn(b, l, c, device=dev, generator=g) / c ** 0.25
+            r1 = torch.randn(b, s, c, device=dev, generator=g) / c ** 0.25
+            r0, r1 = r0.bfloat16(), r1.bfloat16()
+            rm0 = rm1 = None
+            if masked:
+                rm0 = torch.rand(b, l, device=dev, generator=g) > 0.25
+                rm1 = torch.rand(b, s, device=dev, generator=g) > 0.25
+            label = f"bf16 ragged {(b, l, s, c)}{' masked' if masked else ''}"
+            agreement(label, K.dual_softmax_mutual(r0, r1, 0.1, rm0, rm1),
+                      K.dual_softmax_mutual_plain(r0, r1, 0.1, rm0, rm1),
+                      rm0, TOL_BF16)
+            rm0f = (torch.ones(b, l, device=dev) if rm0 is None
+                    else rm0.float())
+            rm1f = (torch.ones(b, s, device=dev) if rm1 is None
+                    else rm1.float())
+            _, _, ct, rt = sweeps(label, r0, r1, rm0f, rm1f, inv_t)
+            ragged.append((label, r0, r1, rm0f, rm1f, ct, rt))
 
-        # timings at main-path shapes (bf16, masked inputs)
-        n_tiles = ks[2].shape[1]
-        flops = 2.0 * B * L * L * C
-        in_bytes = 2 * B * L * C * 2 + 2 * B * L * 4
-        t_lib = cuda_ms(lambda: torch.bmm(f0, f1.transpose(1, 2)), 10)
-        for name, kfn, pfn, extra_in, out_bytes in (
-                ("dsmax_stats",
-                 lambda: K.dsmax_stats(f0, f1, m0f, m1f, inv_t),
-                 lambda: K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t),
-                 0, 2 * B * L * 4 + 2 * B * n_tiles * L * 4),
-                ("dsmax_argmax",
-                 lambda: K.dsmax_argmax(f0, f1, m0f, m1f, colterm, rowterm,
-                                        inv_t),
-                 lambda: K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm,
-                                              rowterm, inv_t),
-                 2 * B * L * 4, 2 * B * L * 4 + 2 * B * n_tiles * L * 4)):
-            t_k = cuda_ms(kfn, 10)
-            t_p = cuda_ms(pfn, 2)
-            b_ms, b_by = bound(flops, in_bytes + extra_in + out_bytes)
-            print(f"  {name}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-                  f"torch.bmm {t_lib:.3f} ms, bound {b_ms:.3f} ms "
-                  f"({b_by}); {flops / t_k / 1e9:.1f} TFLOP/s [{self.card}]")
+        # timings: main-path shapes, then the ragged cases
+        main = timed(f"bf16 {tuple(f0.shape)} x {tuple(f1.shape)}", f0, f1,
+                     m0f, m1f, colterm, rowterm, inv_t, plain=True)
+        for name, t in main.items():
             self.kernels[name] = {
                 "name": name, "route": "cuda",
                 "source": "gim_tpu_torch/csrc/dsmax.cu",
@@ -298,15 +381,18 @@ class Smoke:
                              if name == "dsmax_stats" else
                              "gim_tpu/ops/pallas_kernels/dsmax.py:80"),
                 "launches": 0, "max_abs_err": err_s if name == "dsmax_stats"
-                else err_a, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": t_lib}
+                else err_a, **t}
+        for label, *args in ragged:
+            timed(label, *args, inv_t)
         t_all = cuda_ms(lambda: K.dual_softmax_mutual(f0, f1, 0.1, m0, m1), 5)
         t_dense = cuda_ms(lambda: K.dual_softmax_mutual_plain(
             f0, f1, 0.1, m0, m1), 2)
         print(f"  dual_softmax_mutual (2 sweeps + reductions) {t_all:.3f} ms, "
               f"dense plain {t_dense:.3f} ms [{self.card}]")
-        print(f"  partials: {4 * B * n_tiles * L * 4 / 1e6:.1f} MB for "
-              f"{n_tiles} row tiles of {K.BLOCK_M}")
+        block = K.block_rows(f0.dtype)
+        n_blocks = -(-L // block)
+        print(f"  partials: {4 * B * n_blocks * L * 4 / 1e6:.1f} MB for "
+              f"{n_blocks} row blocks of {block}")
 
     # -- 4 ------------------------------------------------------------------
     def main_path(self):

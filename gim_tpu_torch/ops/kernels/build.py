@@ -3,7 +3,8 @@
 Each source `gim_tpu_torch/csrc/<name>.cu` has a plain C interface and is
 compiled by `nvcc` for `sm_90a` into `build/gim_tpu_torch/lib<name>_
 <hash>.so` at the root of the checkout (listed in `.gitignore`). The hash
-covers the source and the flags, so an unchanged source is not rebuilt.
+covers the source, the `csrc/` headers it includes (`hopper.cuh`) and the
+flags, so an unchanged source is not rebuilt and an edited header is.
 Nothing here runs when a module is imported: the CPU tests import every
 module on a host without `nvcc`.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -44,9 +46,17 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
+def _inputs(name: str) -> list[Path]:
+    """csrc/<name>.cu and the csrc headers it includes (`#include "x"`)."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    heads = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
+    return [src, *(CSRC / h for h in heads)]
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _inputs(name):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -10,14 +10,18 @@ kernel (`csrc/dsmax.cu`) never writes the (L, S) matrix. It runs two
 sweeps over sim tiles, each launched once for the whole batch:
 
 - `dsmax_stats`: row max and row sum-exp, plus column max / sum-exp
-  partials for each tile of `BLOCK_M` rows (the TPU's `_stats_kernel`);
+  partials for each block of `block_rows(dtype)` rows of f0 (the TPU's
+  `_stats_kernel`);
 - `dsmax_argmax`: the log-domain argmax on both sides, rows resident and
-  columns as per-row-tile partials (the TPU's `_argmax_kernel`).
+  columns as per-row-block partials (the TPU's `_argmax_kernel`).
 
-`dual_softmax_mutual` reduces the partials with torch ops between and
-after the sweeps, as the JAX package leaves them to XLA (`dsmax.py:226-
-258`). Each wrapper takes its plain PyTorch version only for CPU tensors;
-for a CUDA tensor it launches its kernel or raises. `LAUNCHES` counts the
+The bf16 kernel takes blocks of 128 rows (TMA + wgmma), the float32 one
+blocks of 64; the plain versions take the same `block`, so every path
+leaves its own partial layout. `dual_softmax_mutual` reduces the partials
+with torch ops between and after the sweeps, as the JAX package leaves
+them to XLA (`dsmax.py:226-258`). Each wrapper takes its plain PyTorch
+version only for CPU tensors; for a CUDA tensor it launches its kernel or
+raises (`kernel_args` says what the kernel takes). `LAUNCHES` counts the
 kernel launches.
 
 `dual_softmax_mutual_plain` is the dense recipe (conf materialised one
@@ -27,14 +31,18 @@ pair at a time), an independent reference for tests and the card check.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from gim_tpu_torch.ops.kernels.build import load_library
 
 NEG = -1e30
-BLOCK_M = 64          # rows per block; must match BM in csrc/dsmax.cu
-MAX_C = 256           # widest feature the kernel's shared memory is sized for
+# rows of f0 per block, by feature dtype; must match dsmax_block_rows()
+BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+MAX_C = 256           # widest feature the kernels' shared memory holds
+C_STEP = 8            # C must be a multiple: TMA's 16-byte row stride
+ALIGN = 16            # bytes: TMA's rule for the feature bases
 
 LAUNCHES = {"dsmax_stats": 0, "dsmax_argmax": 0}
 
@@ -47,7 +55,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 def _lib():
     lib = load_library("dsmax")
     if not getattr(lib, "_gim_typed", False):
-        lib.dsmax_block_rows.argtypes = []
+        lib.dsmax_block_rows.argtypes = [_I]
         lib.dsmax_block_rows.restype = _I
         lib.dsmax_stats.argtypes = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                                     _P, _P, _P, _P, _P]
@@ -55,8 +63,10 @@ def _lib():
         lib.dsmax_argmax.argtypes = [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I,
                                      _I, _I, _P, _P, _P, _P, _P]
         lib.dsmax_argmax.restype = _I
-        if lib.dsmax_block_rows() != BLOCK_M:
-            raise RuntimeError("csrc/dsmax.cu BM differs from BLOCK_M")
+        for dtype, code in _DTYPE_CODE.items():
+            if lib.dsmax_block_rows(code) != BLOCK_ROWS[dtype]:
+                raise RuntimeError(f"csrc/dsmax.cu block rows for {dtype} "
+                                   f"differ from BLOCK_ROWS")
         lib._gim_typed = True
     return lib
 
@@ -65,10 +75,31 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _check(f0, f1, m0, m1, *terms):
-    if f0.device.type != "cuda":
-        raise ValueError(f"dsmax kernel needs CUDA tensors, got {f0.device}")
-    if f0.dtype not in _DTYPE_CODE or f1.dtype != f0.dtype:
+def block_rows(dtype: torch.dtype) -> int:
+    """Rows of f0 per block (the column partials' tiling) for a dtype;
+    float32's for the dtypes that only the plain version takes."""
+    return BLOCK_ROWS.get(dtype, BLOCK_ROWS[torch.float32])
+
+
+class KernelArgs(NamedTuple):
+    B: int
+    L: int
+    S: int
+    C: int
+    block: int                # rows of f0 per block
+    grid: tuple[int, int]     # (row blocks, pairs)
+    cluster: int              # blocks per cluster
+
+
+def kernel_args(f0, f1, m0, m1, *terms) -> KernelArgs:
+    """What the kernel is handed for f0 (B, L, C), f1 (B, S, C), masks
+    m0 (B, L) and m1 (B, S) and, for the argmax sweep, the terms colterm
+    (B, S) and rowterm (B, L). Raises on what the kernel does not take:
+    a dtype other than bf16 / float32, another rank or shape, C not a
+    multiple of 8 or above 256, masks or terms that are not float32 on the
+    features' device, a non-contiguous tensor, a feature base that is not
+    16-byte aligned. Nothing is copied or padded in place of a raise."""
+    if f0.dtype not in BLOCK_ROWS or f1.dtype != f0.dtype:
         raise TypeError(f"dsmax takes bf16 or float32 features, got "
                         f"{f0.dtype} and {f1.dtype}")
     if f0.dim() != 3 or f1.dim() != 3 or f0.shape[0] != f1.shape[0] \
@@ -77,12 +108,18 @@ def _check(f0, f1, m0, m1, *terms):
                          f"{tuple(f1.shape)}")
     B, L, C = f0.shape
     S = f1.shape[1]
-    if C % 16 or C > MAX_C:
-        raise ValueError(f"feature width {C} must be a multiple of 16 and "
-                         f"at most {MAX_C}")
+    if min(B, L, S) < 1 or B > 65535:
+        raise ValueError(f"bad feature shapes {tuple(f0.shape)}, "
+                         f"{tuple(f1.shape)}")
+    if C % C_STEP or C > MAX_C:
+        raise ValueError(f"feature width {C} must be a multiple of {C_STEP} "
+                         f"and at most {MAX_C}")
     if tuple(m0.shape) != (B, L) or tuple(m1.shape) != (B, S):
         raise ValueError(f"mask shapes {tuple(m0.shape)}, {tuple(m1.shape)} "
                          f"do not match {(B, L)}, {(B, S)}")
+    if terms and (len(terms) != 2 or tuple(terms[0].shape) != (B, S)
+                  or tuple(terms[1].shape) != (B, L)):
+        raise ValueError("colterm must be (B, S) and rowterm (B, L)")
     for t in (m0, m1, *terms):
         if t.dtype != torch.float32 or t.device != f0.device:
             raise TypeError("masks and terms must be float32 on the "
@@ -90,7 +127,16 @@ def _check(f0, f1, m0, m1, *terms):
     for t in (f0, f1, m0, m1, *terms):
         if not t.is_contiguous():
             raise ValueError("dsmax takes contiguous tensors only")
-    return B, L, S, C
+    for t in (f0, f1):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"feature base is not {ALIGN}-byte aligned")
+    block = BLOCK_ROWS[f0.dtype]
+    return KernelArgs(B, L, S, C, block, (_cdiv(L, block), B), 1)
+
+
+def _on_cuda(f0):
+    if f0.device.type != "cuda":
+        raise ValueError(f"dsmax kernel needs CUDA tensors, got {f0.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,10 +155,12 @@ def _row_tiles(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.cat([x, pad]).view(n, block, S)
 
 
-def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int = BLOCK_M):
+def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int | None = None):
     """Plain version of the stats sweep: (rmax, rsum) (B, L) and column
-    partials (cpmax, cpsum) (B, L/block, S), float32."""
+    partials (cpmax, cpsum) (B, L/block, S), float32. `block` defaults to
+    the kernel's for f0's dtype."""
     B, L, _ = f0.shape
+    block = block or block_rows(f0.dtype)
     S = f1.shape[1]
     n = _cdiv(L, block)
     rmax = f0.new_empty((B, L), dtype=torch.float32)
@@ -131,11 +179,13 @@ def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int = BLOCK_M):
 
 
 def dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
-                       block: int = BLOCK_M):
+                       block: int | None = None):
     """Plain version of the argmax sweep: (jbest int32, jval) (B, L) and
     column partials (ipidx int32, ipval) (B, L/block, S). Ties go to the
-    first index (torch.max returns the first maximal index)."""
+    first index (torch.max returns the first maximal index). `block`
+    defaults to the kernel's for f0's dtype."""
     B, L, _ = f0.shape
+    block = block or block_rows(f0.dtype)
     S = f1.shape[1]
     n = _cdiv(L, block)
     jbest = f0.new_empty((B, L), dtype=torch.int32)
@@ -164,8 +214,8 @@ def dsmax_stats(f0, f1, m0, m1, inv_t: float):
     """Stats sweep: kernel on CUDA tensors, plain version on CPU tensors."""
     if f0.device.type == "cpu":
         return dsmax_stats_plain(f0, f1, m0, m1, inv_t)
-    B, L, S, C = _check(f0, f1, m0, m1)
-    n = _cdiv(L, BLOCK_M)
+    _on_cuda(f0)
+    B, L, S, C, _, (n, _), _ = kernel_args(f0, f1, m0, m1)
     rmax = torch.empty((B, L), dtype=torch.float32, device=f0.device)
     rsum = torch.empty_like(rmax)
     cpmax = torch.empty((B, n, S), dtype=torch.float32, device=f0.device)
@@ -188,10 +238,8 @@ def dsmax_argmax(f0, f1, m0, m1, colterm, rowterm, inv_t: float):
     """Argmax sweep: kernel on CUDA tensors, plain version on CPU tensors."""
     if f0.device.type == "cpu":
         return dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t)
-    B, L, S, C = _check(f0, f1, m0, m1, colterm, rowterm)
-    if tuple(colterm.shape) != (B, S) or tuple(rowterm.shape) != (B, L):
-        raise ValueError("colterm must be (B, S) and rowterm (B, L)")
-    n = _cdiv(L, BLOCK_M)
+    _on_cuda(f0)
+    B, L, S, C, _, (n, _), _ = kernel_args(f0, f1, m0, m1, colterm, rowterm)
     jbest = torch.empty((B, L), dtype=torch.int32, device=f0.device)
     jval = torch.empty((B, L), dtype=torch.float32, device=f0.device)
     ipidx = torch.empty((B, n, S), dtype=torch.int32, device=f0.device)

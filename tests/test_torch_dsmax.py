@@ -62,6 +62,7 @@ def _run(fn, f0, f1, m0=None, m1=None):
     (150, 130, 16, False),    # several row tiles, ragged
     (150, 130, 16, True),
     (64, 200, 32, True),      # exact row tile, wide S
+    (300, 129, 256, True),    # main-path width; L, S not multiples of 128
 ])
 def test_matches_jax_kernel(fn, L, S, C, masked):
     rng = np.random.default_rng(L * 7 + S + masked)
@@ -122,22 +123,91 @@ def test_planted_row_tie_goes_to_first_index():
         assert bool(got[2][0, i1]) and not bool(got[2][0, i2])
 
 
-def test_plain_sweeps_tile_layout():
-    """The stats sweep's column partials reduce to the dense column
-    statistics, whatever the row tiling."""
+@pytest.mark.parametrize("dtype,n_blocks", [
+    (torch.bfloat16, 3),      # ceil(300 / 128): the wgmma kernel's blocks
+    (torch.float32, 5),       # ceil(300 / 64): the FMA kernel's
+])
+def test_plain_sweeps_tile_layout(dtype, n_blocks):
+    """The stats sweep's column partials come in the kernel's row blocks
+    for the features' dtype, and reduce to the dense column statistics."""
     rng = np.random.default_rng(23)
-    f0, f1 = _feats(rng, 2, 100, 70, 16)
-    t0, t1 = torch.from_numpy(f0), torch.from_numpy(f1)
-    m0 = torch.ones(2, 100)
+    f0, f1 = _feats(rng, 2, 300, 70, 16)
+    t0, t1 = torch.from_numpy(f0).to(dtype), torch.from_numpy(f1).to(dtype)
+    m0 = torch.ones(2, 300)
     m1 = torch.ones(2, 70)
     rmax, rsum, cpmax, cpsum = K.dsmax_stats(t0, t1, m0, m1, 1 / T)
-    assert cpmax.shape == (2, 2, 70)                 # ceil(100 / 64) tiles
-    sim = torch.einsum("blc,bsc->bls", t0, t1) / T
+    assert cpmax.shape == (2, n_blocks, 70)
+    assert K.block_rows(dtype) * (n_blocks - 1) < 300 <= \
+        K.block_rows(dtype) * n_blocks
+    sim = torch.einsum("blc,bsc->bls", t0.float(), t1.float()) / T
     cmax = cpmax.amax(1)
     csum = (cpsum * torch.exp(cpmax - cmax[:, None])).sum(1)
     torch.testing.assert_close(cmax, sim.amax(1))
     torch.testing.assert_close(cmax + torch.log(csum), torch.logsumexp(sim, 1))
     torch.testing.assert_close(rmax + torch.log(rsum), torch.logsumexp(sim, 2))
+
+
+def _kernel_inputs(B, L, S, C, dtype=torch.bfloat16):
+    f0 = torch.zeros(B, L, C, dtype=dtype)
+    f1 = torch.zeros(B, S, C, dtype=dtype)
+    return f0, f1, torch.ones(B, L), torch.ones(B, S)
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 256])
+def test_kernel_args_accepts(C):
+    """Any C that is a multiple of 8 up to 256 (narrow widths are read
+    through a zero-filled 64-column box), bf16 in 128-row blocks."""
+    f0, f1, m0, m1 = _kernel_inputs(2, 300, 129, C)
+    args = K.kernel_args(f0, f1, m0, m1)
+    assert args == (2, 300, 129, C, 128, (3, 2), 1)
+    terms = (torch.zeros(2, 129), torch.zeros(2, 300))
+    assert K.kernel_args(f0, f1, m0, m1, *terms) == args
+    f32 = _kernel_inputs(2, 300, 129, C, torch.float32)
+    assert K.kernel_args(*f32).grid == (5, 2)
+
+
+@pytest.mark.parametrize("case,err", [
+    ("C=12", ValueError),           # not a multiple of 8 (TMA's 16 bytes)
+    ("C=264", ValueError),          # wider than the shared memory holds
+    ("sliced f0", ValueError),      # non-contiguous: nothing is copied
+    ("float16", TypeError),
+    ("terms swapped", ValueError),
+    ("misaligned base", ValueError),  # TMA reads from 16-byte aligned bases
+])
+def test_kernel_args_refuses(case, err):
+    f0, f1, m0, m1 = _kernel_inputs(2, 100, 90, 64)
+    terms = ()
+    if case == "C=12":
+        f0, f1, m0, m1 = _kernel_inputs(2, 100, 90, 12)
+    elif case == "C=264":
+        f0, f1, m0, m1 = _kernel_inputs(2, 100, 90, 264)
+    elif case == "sliced f0":
+        f0 = torch.zeros(2, 100, 128, dtype=torch.bfloat16)[:, :, :64]
+    elif case == "float16":
+        f0, f1 = f0.half(), f1.half()
+    elif case == "misaligned base":
+        f0 = torch.zeros(2 * 100 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+            2, 100, 64)
+    else:
+        terms = (torch.zeros(2, 100), torch.zeros(2, 90))
+    with pytest.raises(err):
+        K.kernel_args(f0, f1, m0, m1, *terms)
+
+
+@pytest.mark.parametrize("name", ["dsmax", "flash"])
+def test_library_path_covers_the_shared_header(name, tmp_path, monkeypatch):
+    """An edited csrc/hopper.cuh gives a new library path, so a stale
+    build of a source that includes it is never loaded."""
+    from gim_tpu_torch.ops.kernels import build
+
+    for f in (f"{name}.cu", "hopper.cuh"):
+        (tmp_path / f).write_bytes((build.CSRC / f).read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert tmp_path / "hopper.cuh" in build._inputs(name)
+    before = build.library_path(name)
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path(name) != before
 
 
 def test_wrapper_never_falls_back_off_the_cpu():
