@@ -24,10 +24,11 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    kernel read around this phase;
 5. fused against dense matching on the card at 320 px in float32, TF32 off;
 6. kernel K2 (refiner_block, the fused ConvRefiner block) against its
-   plain version at the four main-path shapes of gim_roma in bf16 and on
-   ragged cases (C 40 -> 56, widths 200 and 203; 192 -> 144) in float32
-   and bf16, with timings of kernel, plain version and the switches-off
-   block (PyTorch's depthwise conv, BN, ReLU, 1x1 conv) beside the bound;
+   plain version at the four main-path shapes of gim_roma and the four of
+   gim_dkm in bf16 and on ragged cases (C 40 -> 56, widths 200 and 203;
+   192 -> 144) in float32 and bf16, with timings of kernel, plain version
+   and the switches-off block (PyTorch's depthwise conv, BN, ReLU, 1x1
+   conv) beside the bound;
 7. kernel K3 (flash_attention) against its plain version on the strided
    q, k, v views of a qkv split at the ViT-L (2, 16, 2305, 64) and
    coordinate-decoder (2, 8, 2304, 128) shapes in bf16 and on ragged
@@ -41,7 +42,16 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    calls of 1 pair, one call with content masks; 32 K2 and 29 K3 launches
    asserted per call; stage times and a profile;
 9. gim_roma with both switches on against both off, float32, TF32 off,
-   224 -> 448 px: warp and certainty agree.
+   224 -> 448 px: warp and certainty agree;
+10. main path of gim_dkm: `Matcher("gim_dkm")` at full width (ResNet-50
+   pyramid, GP and DFN at 1/32 and 1/16, five ConvRefiners) at its
+   operating point (bf16, GIM_TPU_FUSED_REFINER=1) on 1 pair of 840 x 840
+   canvases with content masks of 840 x 630 (the ZEB protocol: 660 x 880
+   -> 1152 x 1536, 5000 balanced samples): one warm-up and 3 timed calls,
+   one call without masks (aspect-pad); 32 K2 launches asserted per call;
+   stage times and a profile;
+11. gim_dkm with the switch on against off, float32, TF32 off, 240 x 320
+   -> 384 x 512: warp and certainty agree.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}.
@@ -84,6 +94,13 @@ REFINER_SHAPES = ((2, 144, 336, 336), (2, 24, 672, 672), (2, 144, 672, 672),
 FLASH_SHAPES = (((32, 2305, 64), 24), ((16, 2304, 128), 5))
 ROMA_IMG = 672
 ROMA_K2_PER_CALL = 4 * HIDDEN_BLOCKS
+# gim_dkm at the operating point: hidden blocks 144 (scale 2) and 24
+# (scale 1) wide, at 660 x 880 and 1152 x 1536, 2 images; the ZEB canvas
+# (gim_tpu/data/zeb.py:48) and a landscape image's content on it
+DKM_REFINER_SHAPES = ((2, 144, 330, 440), (2, 24, 660, 880),
+                      (2, 144, 576, 768), (2, 24, 1152, 1536))
+DKM_K2_PER_CALL = 4 * HIDDEN_BLOCKS
+DKM_CANVAS, DKM_CONTENT = 840, (630, 840)     # (h, w) of the content
 ROMA_K3_PER_CALL = sum(n for _, n in FLASH_SHAPES)
 SWITCH_TOL = 1e-3     # warp (normalized coordinates) and certainty
 
@@ -486,52 +503,63 @@ class Smoke:
         self.stages(m, batches[1])
         self.profile(m, batches[2])
 
-    def stages(self, m, batch):
-        """Time on the card's stream between the start and end of each
-        stage of one batch (CUDA events recorded by module hooks); the
-        coarse matching is the gap between the coarse transformer and the
-        fine windows."""
+    def timed_call(self, m, args, mods):
+        """One `m.match(*args)` with a CUDA event recorded where each of
+        `mods` (name: module) starts and ends its forward, a list per name
+        (a module that runs twice has four). Returns the events, the
+        call's end event and the call's time on the card's stream."""
         import torch
 
-        model = m.model
-        mods = {"backbone": model.backbone,
-                "coarse transformer": model.loftr_coarse,
-                "fine windows": model.fine_preprocess,
-                "fine transformer": model.loftr_fine}
-        ev = {}
+        ev: dict[str, list] = {k: [] for k in mods}
 
         def mark(key):
             def hook(*_):
                 e = torch.cuda.Event(enable_timing=True)
                 e.record()
-                ev[key] = e
+                ev[key].append(e)
             return hook
 
         handles = []
         for name, mod in mods.items():
-            handles.append(mod.register_forward_pre_hook(mark((name, 0))))
-            handles.append(mod.register_forward_hook(mark((name, 1))))
+            handles.append(mod.register_forward_pre_hook(mark(name)))
+            handles.append(mod.register_forward_hook(mark(name)))
         try:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            m.match(*batch)
+            m.match(*args)
             end.record()
             torch.cuda.synchronize()
         finally:
             for h in handles:
                 h.remove()
-        spans = {name: ev[(name, 0)].elapsed_time(ev[(name, 1)])
-                 for name in mods}
-        spans["coarse matching (K1, top-k)"] = ev[
-            ("coarse transformer", 1)].elapsed_time(ev[("fine windows", 0)])
-        total = start.elapsed_time(end)
-        spans["rest (input cast, expectation, coordinates)"] = (
-            total - sum(spans.values()))
-        print(f"  stages of one batch, {total:.2f} ms on the stream "
+        return ev, end, start.elapsed_time(end)
+
+    def print_stages(self, what, spans, total, rest):
+        """Print `spans` (name: ms) of one call of `total` ms, the rest
+        of the call under the name `rest`."""
+        spans[rest] = total - sum(spans.values())
+        print(f"  stages of {what}, {total:.2f} ms on the stream "
               f"[{self.card}]:")
         for name, t in spans.items():
             print(f"    {t:9.3f} ms  {t / total:6.3f}  {name}")
+
+    def stages(self, m, batch):
+        """Time on the card's stream between the start and end of each
+        stage of one batch; the coarse matching is the gap between the
+        coarse transformer and the fine windows."""
+        model = m.model
+        mods = {"backbone": model.backbone,
+                "coarse transformer": model.loftr_coarse,
+                "fine windows": model.fine_preprocess,
+                "fine transformer": model.loftr_fine}
+        ev, _, total = self.timed_call(m, batch, mods)
+        spans = {name: ev[name][0].elapsed_time(ev[name][1])
+                 for name in mods}
+        spans["coarse matching (K1, top-k)"] = ev[
+            "coarse transformer"][1].elapsed_time(ev["fine windows"][0])
+        self.print_stages("one batch", spans, total,
+                          "rest (input cast, expectation, coordinates)")
 
     def profile(self, m, batch):
         """Device time by kernel for one batch. Informational: a profiler
@@ -647,56 +675,66 @@ class Smoke:
                 assert torch.allclose(got.float(), want, rtol=rtol,
                                       atol=atol), (shape, dtype)
 
-        tot = dict(ms=0.0, plain_ms=0.0, off_ms=0.0, bound_ms=0.0)
         max_err = 0.0
         by = set()
-        for shape in REFINER_SHAPES:
-            B, C, H, W = shape
-            x = torch.randn(shape, device=dev, generator=g).bfloat16()
-            blk, f = params(C, C, torch.bfloat16)
-            got = K.fused_dw_block(x, *f)
-            plain = K.fused_dw_block_plain(x, *f)
-            want = K.fused_dw_block_plain(x.float(), *(t.float() for t in f))
-            torch.cuda.synchronize()
-            err = float((got.float() - want).abs().max())
-            err_p = float((got.float() - plain.float()).abs().max())
-            ok = torch.allclose(got.float(), want, rtol=RTOL_BF16,
-                                atol=ATOL_BF16)
-            t_k = cuda_ms(lambda: K.fused_dw_block(x, *f), 10)
-            t_p = cuda_ms(lambda: K.fused_dw_block_plain(x, *f), 10)
-            t_off = cuda_ms(lambda: _run_block(blk, x, torch.bfloat16), 10)
-            flops = 2.0 * B * H * W * (25 * C + C * C)
-            nbytes = 2.0 * B * H * W * (C + C) + 2.0 * (27 * C + C * C)
-            b_ms, b_by = bound(flops, nbytes)
-            by.add(b_by)
-            print(f"  bf16 {shape} -> {C}: max abs err {err:.3e} against "
-                  f"the plain version in float32 on the same inputs (limit "
-                  f"{ATOL_BF16} + {RTOL_BF16} |plain|), {err_p:.3e} against "
-                  f"the plain version in bf16")
-            print(f"    kernel {t_k:.3f} ms ({nbytes / t_k / 1e6:.0f} GB/s, "
-                  f"{t_k / b_ms:.2f}x its bound {b_ms:.3f} ms ({b_by})), "
-                  f"plain {t_p:.3f} ms, switches-off block (PyTorch "
-                  f"depthwise conv + BN + ReLU + 1x1) {t_off:.3f} ms "
+        grand = dict(ms=0.0, plain_ms=0.0, off_ms=0.0, bound_ms=0.0)
+        for head, shapes in (("gim_roma", REFINER_SHAPES),
+                             ("gim_dkm", DKM_REFINER_SHAPES)):
+            tot = dict(ms=0.0, plain_ms=0.0, off_ms=0.0, bound_ms=0.0)
+            for shape in shapes:
+                B, C, H, W = shape
+                x = torch.randn(shape, device=dev, generator=g).bfloat16()
+                blk, f = params(C, C, torch.bfloat16)
+                got = K.fused_dw_block(x, *f)
+                plain = K.fused_dw_block_plain(x, *f)
+                want = K.fused_dw_block_plain(x.float(),
+                                              *(t.float() for t in f))
+                torch.cuda.synchronize()
+                err = float((got.float() - want).abs().max())
+                err_p = float((got.float() - plain.float()).abs().max())
+                ok = torch.allclose(got.float(), want, rtol=RTOL_BF16,
+                                    atol=ATOL_BF16)
+                del plain, want
+                t_k = cuda_ms(lambda: K.fused_dw_block(x, *f), 10)
+                t_p = cuda_ms(lambda: K.fused_dw_block_plain(x, *f), 10)
+                t_off = cuda_ms(lambda: _run_block(blk, x, torch.bfloat16),
+                                10)
+                flops = 2.0 * B * H * W * (25 * C + C * C)
+                nbytes = 2.0 * B * H * W * (C + C) + 2.0 * (27 * C + C * C)
+                b_ms, b_by = bound(flops, nbytes)
+                by.add(b_by)
+                print(f"  {head} bf16 {shape} -> {C}: max abs err {err:.3e} "
+                      f"against the plain version in float32 on the same "
+                      f"inputs (limit {ATOL_BF16} + {RTOL_BF16} |plain|), "
+                      f"{err_p:.3e} against the plain version in bf16")
+                print(f"    kernel {t_k:.3f} ms ({nbytes / t_k / 1e6:.0f} "
+                      f"GB/s, {t_k / b_ms:.2f}x its bound {b_ms:.3f} ms "
+                      f"({b_by})), plain {t_p:.3f} ms, switches-off block "
+                      f"(PyTorch depthwise conv + BN + ReLU + 1x1) "
+                      f"{t_off:.3f} ms [{self.card}]")
+                assert ok, shape
+                max_err = max(max_err, err)
+                n = HIDDEN_BLOCKS
+                tot["ms"] += n * t_k
+                tot["plain_ms"] += n * t_p
+                tot["off_ms"] += n * t_off
+                tot["bound_ms"] += n * b_ms
+                del x, got
+            print(f"  per {head} call ({HIDDEN_BLOCKS} blocks at each "
+                  f"shape): kernel {tot['ms']:.3f} ms, plain "
+                  f"{tot['plain_ms']:.3f} ms, switches-off blocks "
+                  f"{tot['off_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; "
+                  f"kernel / bound {tot['ms'] / tot['bound_ms']:.2f} "
                   f"[{self.card}]")
-            assert ok, shape
-            max_err = max(max_err, err)
-            n = HIDDEN_BLOCKS
-            tot["ms"] += n * t_k
-            tot["plain_ms"] += n * t_p
-            tot["off_ms"] += n * t_off
-            tot["bound_ms"] += n * b_ms
-            del x, got, want
-        print(f"  per gim_roma call ({HIDDEN_BLOCKS} blocks at each shape): "
-              f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-              f"switches-off blocks {tot['off_ms']:.3f} ms, bound "
-              f"{tot['bound_ms']:.3f} ms; kernel / bound "
-              f"{tot['ms'] / tot['bound_ms']:.2f} [{self.card}]")
+            for k in grand:
+                grand[k] += tot[k]
+        # the JSON entry: one gim_roma call and one gim_dkm call together
         self.kernels["refiner_block"] = {
             "name": "refiner_block", "route": "cuda",
             "source": "gim_tpu_torch/csrc/refiner.cu",
             "replaces": "gim_tpu/ops/pallas_kernels/refiner.py:39",
-            "launches": 0, "max_abs_err": max_err, "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "launches": 0, "max_abs_err": max_err, "ms": grand["ms"],
+            "plain_ms": grand["plain_ms"], "bound_ms": grand["bound_ms"],
             "bound_by": "bytes" if by == {"bytes"} else "operations",
             "library_ms": None}
 
@@ -893,37 +931,12 @@ class Smoke:
               f"call per image {t_r:.3f} ms [{self.card}]")
 
     def roma_stages(self, m, pair):
-        """Time on the card's stream of each stage of one call, from CUDA
-        events recorded by module hooks; VGG and the decoder run once per
-        pass."""
-        import torch
-
+        """Time on the card's stream of each stage of one call; VGG and
+        the decoder run once per pass."""
         model = m.model
-        mods = {"vgg": model.encoder["cnn"], "dinov2": model.dinov2,
-                "decoder": model.decoder}
-        ev: dict[str, list] = {k: [] for k in mods}
-
-        def mark(key):
-            def hook(*_):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                ev[key].append(e)
-            return hook
-
-        handles = []
-        for name, mod in mods.items():
-            handles.append(mod.register_forward_pre_hook(mark(name)))
-            handles.append(mod.register_forward_hook(mark(name)))
-        try:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            m.match(*pair)
-            end.record()
-            torch.cuda.synchronize()
-        finally:
-            for h in handles:
-                h.remove()
+        ev, end, total = self.timed_call(
+            m, pair, {"vgg": model.encoder["cnn"], "dinov2": model.dinov2,
+                      "decoder": model.decoder})
         vgg, dino, dec = ev["vgg"], ev["dinov2"], ev["decoder"]
         spans = {
             "coarse VGG19 (672 px)": vgg[0].elapsed_time(vgg[1]),
@@ -934,12 +947,7 @@ class Smoke:
             "fine decoder (4 refiners, K2)": dec[2].elapsed_time(dec[3]),
             "warp assembly and sampling": dec[3].elapsed_time(end),
         }
-        total = start.elapsed_time(end)
-        spans["rest (resizes, gaps)"] = total - sum(spans.values())
-        print(f"  stages of one call, {total:.2f} ms on the stream "
-              f"[{self.card}]:")
-        for name, t in spans.items():
-            print(f"    {t:9.3f} ms  {t / total:6.3f}  {name}")
+        self.print_stages("one call", spans, total, "rest (resizes, gaps)")
 
     # -- 9 ------------------------------------------------------------------
     def roma_switches_on_off(self):
@@ -979,6 +987,151 @@ class Smoke:
         print(f"  224 px -> 448 px, float32, TF32 off, switches on "
               f"(K2 + K3) against off (PyTorch convolutions, plain sdpa)")
 
+    # -- 10 -----------------------------------------------------------------
+    def dkm_main_path(self):
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.config import DKMConfig, GimConfig
+        from gim_tpu_torch.ops.kernels import flash, refiner
+
+        dev = torch.device("cuda")
+        S = DKM_CANVAS
+        h, w = DKM_CONTENT
+        with switches(True):
+            cfg = GimConfig(dkm=DKMConfig(dtype="bfloat16"))
+            t0 = time.perf_counter()
+            m = Matcher("gim_dkm", cfg, generator=torch.Generator()
+                        .manual_seed(0), device="cuda")
+            print(f"  matcher built in {time.perf_counter() - t0:.1f} s")
+            g = torch.Generator(device=dev).manual_seed(10)
+            mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
+            mask[:, :h, :w] = True
+            shape = (1, 3, S, S)
+            pairs = [(torch.rand(shape, device=dev, generator=g) * mask,
+                      torch.rand(shape, device=dev, generator=g) * mask,
+                      None, None, mask, mask) for _ in range(3)]
+            n = cfg.dkm.num_samples
+
+            for c in (refiner.LAUNCHES, flash.LAUNCHES):
+                for k in c:
+                    c[k] = 0
+            calls = 0
+
+            def one(*args):
+                """One match call: finite keypoints of the right shapes,
+                inside the content rectangle (canvas width for the
+                aspect-pad call), 32 K2 launches and no K3 one."""
+                nonlocal calls
+                r = m.match(*args)
+                torch.cuda.synchronize()
+                calls += 1
+                assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
+                assert r.kpts1.shape == (1, n, 2) and r.conf.shape == (1, n)
+                for t in (r.kpts0, r.kpts1, r.conf):
+                    assert bool(torch.isfinite(t).all())
+                v = r.valid[0]
+                # aspect-pad: the canvas right-padded to the model's w:h
+                hh, ww = ((h, w) if args[4] is not None else
+                          (S, round(S * cfg.dkm.w_resized
+                                    / cfg.dkm.h_resized)))
+                for k in (r.kpts0[0][v], r.kpts1[0][v]):
+                    assert bool((k >= 0).all() and (k[:, 0] <= ww).all()
+                                and (k[:, 1] <= hh).all())
+                got = refiner.LAUNCHES["refiner_block"]
+                assert got == calls * DKM_K2_PER_CALL, (got, calls)
+                assert flash.LAUNCHES["flash_attention"] == 0
+                return r
+
+            one(*pairs[0])                               # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for p in pairs:
+                t0 = time.perf_counter()
+                r = one(*p)
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"  valid matches per call: {int(r.valid.sum())} of {n}, "
+                  f"all inside the {w} x {h} content rectangle")
+            assert int(r.valid.sum()) > 0
+
+            # aspect-pad: no masks, the canvas right-padded to 840 x 1120
+            a, b = pairs[0][:2]
+            r = one(a, b, None, None, None, None)
+            print(f"  call without masks (aspect-pad): "
+                  f"{int(r.valid.sum())} valid")
+            assert int(r.valid.sum()) > 0
+            got = refiner.LAUNCHES["refiner_block"]
+            self.kernels["refiner_block"]["launches"] += got
+            ms = statistics.median(times) * 1e3
+            print(f"  main path: {calls} match calls, K2 launches {got} "
+                  f"({DKM_K2_PER_CALL} per call); the K2 entry's launches "
+                  f"now {self.kernels['refiner_block']['launches']} "
+                  f"(gim_roma's and gim_dkm's main paths)")
+            print(f"  1 pair of {S} x {S} canvases ({w} x {h} content) -> "
+                  f"{cfg.dkm.h_resized} x {cfg.dkm.w_resized} -> "
+                  f"{cfg.dkm.upsample_res[0]} x {cfg.dkm.upsample_res[1]}, "
+                  f"bf16, K2 on: median {ms:.2f} ms per pair (runs "
+                  f"{[round(t * 1e3, 2) for t in times]}), peak memory "
+                  f"{peak / 2**30:.2f} GiB [{self.card}]")
+            self.dkm_stages(m, pairs[1])
+            self.profile(m, pairs[2])
+
+    def dkm_stages(self, m, pair):
+        """Time on the card's stream of each stage of one call; the
+        encoder and the decoder run once per pass."""
+        model = m.model
+        ev, end, total = self.timed_call(
+            m, pair, {"encoder": model.encoder, "decoder": model.decoder})
+        enc, dec = ev["encoder"], ev["decoder"]
+        c = m.cfg.dkm
+        spans = {
+            f"coarse encoder ({c.h_resized} x {c.w_resized})":
+                enc[0].elapsed_time(enc[1]),
+            "coarse decoder (GP and DFN at 1/32 and 1/16, 5 refiners; K2)":
+                dec[0].elapsed_time(dec[1]),
+            f"upsample encoder ({c.upsample_res[0]} x {c.upsample_res[1]})":
+                enc[2].elapsed_time(enc[3]),
+            "upsample decoder (4 refiners; K2)": dec[2].elapsed_time(dec[3]),
+            "warp assembly and sampling": dec[3].elapsed_time(end),
+        }
+        self.print_stages("one call", spans, total,
+                          "rest (input resizes, gaps)")
+
+    # -- 11 -----------------------------------------------------------------
+    def dkm_switch_on_off(self):
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.config import DKMConfig, GimConfig
+        from gim_tpu_torch.ops.kernels import refiner
+
+        cfg = GimConfig(dkm=DKMConfig(h_resized=240, w_resized=320,
+                                      upsample_res=(384, 512)))
+        m = Matcher("gim_dkm", cfg, generator=torch.Generator()
+                    .manual_seed(0), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        a = torch.rand(1, 3, 240, 320, device="cuda", generator=g)
+        b = torch.roll(a, shifts=(9, 13), dims=(2, 3))
+        out = {}
+        for on in (True, False):
+            before = refiner.LAUNCHES["refiner_block"]
+            with switches(on), torch.inference_mode():
+                out[on] = m.model(a, b)
+            torch.cuda.synchronize()
+            ran = refiner.LAUNCHES["refiner_block"] - before
+            assert ran == (DKM_K2_PER_CALL if on else 0), (on, ran)
+        for i, name in enumerate(("warp", "cert")):
+            d = (out[True][i] - out[False][i]).abs()
+            if d.dim() == 4:
+                d = d.amax(-1)
+            share = float((d <= SWITCH_TOL).float().mean())
+            print(f"  {name}: agree within {SWITCH_TOL} on {share:.6f} of "
+                  f"pixels (limit {MIN_AGREE}), max diff {float(d.max()):.3e}")
+            assert share >= MIN_AGREE, name
+        print("  240 x 320 -> 384 x 512, float32, TF32 off, switch on (K2) "
+              "against off (PyTorch convolutions)")
+
 
 def main() -> int:
     try:
@@ -1014,6 +1167,8 @@ def main() -> int:
         s.phase("8 gim_roma main path", s.roma_main_path)
         s.phase("9 gim_roma switches on against off",
                 s.roma_switches_on_off)
+        s.phase("10 gim_dkm main path", s.dkm_main_path)
+        s.phase("11 gim_dkm switch on against off", s.dkm_switch_on_off)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

@@ -1,9 +1,9 @@
 """High-level matcher API of the PyTorch port.
 
-Port of `gim_tpu/api.py:27-140` and `:198-263`: build a matcher by name,
+Port of `gim_tpu/api.py:27-140` and `:198-315`: build a matcher by name,
 feed a batch of image pairs, get a `MatchResult` of fixed-shape tensors
-with a validity mask. `gim_loftr` and `gim_roma` are ported; the other
-heads raise `NotImplementedError` naming the slice of the port
+with a validity mask. `gim_loftr`, `gim_dkm` and `gim_roma` are ported;
+the other heads raise `NotImplementedError` naming the slice of the port
 (ROADMAP.md) that brings them.
 
 Entry points run on the GPU (`device="cuda"`, the default) unless the
@@ -16,10 +16,12 @@ import os
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from gim_tpu_torch import config as C
 from gim_tpu_torch.models.common import init_weights
-from gim_tpu_torch.models.dkm.model import sample_matches
+from gim_tpu_torch.models.dkm.model import (DKMMatcher, sample_matches,
+                                            warp_to_pixels)
 from gim_tpu_torch.models.loftr import LoFTRMatcher
 from gim_tpu_torch.models.roma import RoMaMatcher
 from gim_tpu_torch.utils.device import resolve_device, set_tf32, torch_dtype
@@ -42,8 +44,10 @@ class MatchResult:
 
 
 MODEL_ZOO = ("gim_lightglue", "gim_loftr", "gim_dkm", "gim_roma", "root_sift")
-_LATER_SLICE = {"gim_dkm": 3, "gim_lightglue": 5, "root_sift": 6}
-ROMA_SAMPLE_SEED = 11   # gim_tpu/api.py:247 samples from PRNGKey(11)
+_LATER_SLICE = {"gim_lightglue": 5, "root_sift": 6}
+# the JAX package samples from PRNGKey(11) (gim_roma, gim_tpu/api.py:250)
+# and PRNGKey(7) (gim_dkm, :301)
+SAMPLE_SEED = {"gim_roma": 11, "gim_dkm": 7}
 
 
 def _check_name(name: str):
@@ -59,15 +63,18 @@ def build_model(name: str, cfg: C.GimConfig) -> torch.nn.Module:
     _check_name(name)
     if name == "gim_roma":
         return RoMaMatcher(cfg.roma)
+    if name == "gim_dkm":
+        return DKMMatcher(cfg.dkm)
     return LoFTRMatcher(cfg.loftr)
 
 
 def _model_dtype(name: str, cfg: C.GimConfig) -> torch.dtype:
     """The dtype the parameters are stored in: gim_loftr stores them in
-    its compute dtype; gim_roma keeps them float32 and casts at each
-    layer, as the JAX package does (models/common.py)."""
-    return torch.float32 if name == "gim_roma" else torch_dtype(
-        cfg.loftr.dtype)
+    its compute dtype; gim_dkm and gim_roma keep them float32 and cast at
+    each layer, as the JAX package does (models/common.py)."""
+    if name == "gim_loftr":
+        return torch_dtype(cfg.loftr.dtype)
+    return torch.float32
 
 
 def _load(model: torch.nn.Module, name: str, state_dict: dict):
@@ -126,6 +133,8 @@ class Matcher:
             dino = (port.load_dinov2_state_dict(side)
                     if os.path.exists(side) else None)
             sd = port.roma_model_state_dict(raw, dino)
+        elif name == "gim_dkm":
+            sd = port.dkm_checkpoint_state_dict(raw)
         else:
             sd = port.loftr_checkpoint_state_dict(raw)
         return cls(name, cfg, state_dict=sd, device=device)
@@ -135,8 +144,8 @@ class Matcher:
               ) -> MatchResult:
         """image0/1: (B, 3, H, W) float [0,1] (resized/padded frame).
         scale: (B, 2) [w/w', h/h'] to map back to original pixels;
-        mask: (B, H, W) bool content masks; generator: gim_roma's match
-        sampling (see `match_fn`)."""
+        mask: (B, H, W) bool content masks; generator: the match sampling
+        of gim_dkm and gim_roma (see `match_fn`)."""
         return match_fn(self.name, self.cfg, self.model, image0, image1,
                         scale0, scale1, mask0, mask1, device=self.device,
                         generator=generator)
@@ -150,11 +159,11 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
     """Run `model` (built by `build_model`, on `device`) on a batch of
     pairs. Inputs are moved to `device`; missing scales are ones.
 
-    gim_roma samples its matches at random: from `generator` (default: a
-    generator on `device` seeded 11 at each call, so a call is
-    reproducible as the JAX package's is), or from `sample_noise`, one
-    (g1, g2) pair of Gumbel draws per pair of images
-    (`models/dkm/model.py:sample_matches`)."""
+    gim_dkm and gim_roma sample their matches at random: from `generator`
+    (default: a generator on `device` seeded at each call, 7 for gim_dkm
+    and 11 for gim_roma, so a call is reproducible as the JAX package's
+    is), or from `sample_noise`, one (g1, g2) pair of Gumbel draws per
+    pair of images (`models/dkm/model.py:sample_matches`)."""
     _check_name(name)
     dev = resolve_device(device)
     B = image0.shape[0]
@@ -171,11 +180,12 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
     mask0 = put(mask0, torch.bool)
     mask1 = put(mask1, torch.bool)
     with torch.inference_mode():
-        if name == "gim_roma":
+        if name in SAMPLE_SEED:
             if generator is None and sample_noise is None:
-                generator = torch.Generator(dev).manual_seed(ROMA_SAMPLE_SEED)
-            return _match_roma(cfg, model, image0, image1, scale0, scale1,
-                               mask0, mask1, generator, sample_noise)
+                generator = torch.Generator(dev).manual_seed(SAMPLE_SEED[name])
+            dense = _match_roma if name == "gim_roma" else _match_dkm
+            return dense(cfg, model, image0, image1, scale0, scale1, mask0,
+                         mask1, generator, sample_noise)
         out = model(image0, image1, scale0, scale1, mask0, mask1)
     return MatchResult(out["mkpts0_f"], out["mkpts1_f"], out["mconf"],
                        out["valid"])
@@ -204,12 +214,7 @@ def _match_roma(cfg: C.GimConfig, model, image0, image1, scale0, scale1,
     e0 = _mask_extent(mask0, S, S) if distort else None
     e1 = _mask_extent(mask1, S, S) if distort else None
     warp, cert = model(image0, image1, e0, e1)
-    samples = [sample_matches(
-        warp[b], cert[b], c.num_samples, c.sample_thresh, c.sample_mode,
-        generator=generator,
-        noise=None if sample_noise is None else sample_noise[b])
-        for b in range(B)]
-    matches, conf, valid = (torch.stack(t) for t in zip(*samples))
+    matches, conf, valid = _sample(c, warp, cert, generator, sample_noise)
     if distort:
         wh0 = e0[:, None, :] * S        # (B, 1, 2) valid rect (w, h)
         wh1 = e1[:, None, :] * S
@@ -217,5 +222,48 @@ def _match_roma(cfg: C.GimConfig, model, image0, image1, scale0, scale1,
         wh0 = wh1 = torch.full((B, 1, 2), float(S), device=warp.device)
     k0 = wh0 * (matches[..., 0:2] + 1) / 2 * scale0[:, None, :]
     k1 = wh1 * (matches[..., 2:4] + 1) / 2 * scale1[:, None, :]
+    valid = valid & (conf > 0)
+    return MatchResult(k0, k1, torch.where(valid, conf, 0.0), valid)
+
+
+def _sample(c, warp, cert, generator, sample_noise):
+    """Balanced sampling of each pair's dense warp; (matches (B, M, 4),
+    conf (B, M), valid (B, M))."""
+    samples = [sample_matches(
+        warp[b], cert[b], c.num_samples, c.sample_thresh, c.sample_mode,
+        generator=generator,
+        noise=None if sample_noise is None else sample_noise[b])
+        for b in range(warp.shape[0])]
+    return (torch.stack(t) for t in zip(*samples))
+
+
+def _match_dkm(cfg: C.GimConfig, model, image0, image1, scale0, scale1,
+               mask0, mask1, generator, sample_noise) -> MatchResult:
+    """DKM dense warp -> balanced sampling -> original-frame keypoints
+    (gim_tpu/api.py:266-315). With `distort_aspect` and content masks (the
+    reference ZEB protocol, ref trainer/lightning.py:134-156) the valid
+    canvas rectangle is resampled to the model's (h_resized, w_resized),
+    distorting its aspect; otherwise the square canvas is right-padded
+    with zeros to the model's w:h aspect (the demo's approach, ref
+    demo.py:420-428) and resized whole."""
+    c = cfg.dkm
+    B, _, S, _ = image0.shape
+    distort = c.distort_aspect and mask0 is not None
+    if distort:
+        e0 = _mask_extent(mask0, S, S)
+        e1 = _mask_extent(mask1, S, S)
+        warp, cert = model(image0, image1, e0, e1)
+    else:
+        pad_w = max(int(round(S * c.w_resized / c.h_resized)) - S, 0)
+        warp, cert = model(F.pad(image0, (0, pad_w)),
+                           F.pad(image1, (0, pad_w)))
+    matches, conf, valid = _sample(c, warp, cert, generator, sample_noise)
+    if distort:
+        k0 = e0[:, None, :] * S * (matches[..., 0:2] + 1) / 2
+        k1 = e1[:, None, :] * S * (matches[..., 2:4] + 1) / 2
+    else:
+        k0, k1 = warp_to_pixels(matches, S, S + pad_w)
+    k0 = k0 * scale0[:, None, :]
+    k1 = k1 * scale1[:, None, :]
     valid = valid & (conf > 0)
     return MatchResult(k0, k1, torch.where(valid, conf, 0.0), valid)

@@ -1,17 +1,17 @@
-"""DKM building blocks that gim_roma uses (PyTorch port).
+"""DKM building blocks, shared by gim_dkm and gim_roma (PyTorch port).
 
 Port of `gim_tpu/models/dkm/blocks.py`: `coords_grid` (:34-41),
 `resize_nhwc` (:44-52), `resize_region_nhwc` (:55-79), `sample_nhwc`
 (:82-92), `local_correlation` (:147-301), `kde_density` (:304-328),
-`CosKernel` (:331-347), `GP` (:405-459) and `ConvRefiner` (:530-680);
-reference: networks/dkm/models/dkm.py, networks/roma/roma.py:436-580.
-DFN, RRB and CAB (gim_dkm only) are not ported yet, nor GP's
-`bug_compat` (off for RoMa).
+`CosKernel` (:331-347), `GP` (:405-459, with `bug_compat`), `RRB`
+(:462-480), `CAB` (:483-497), `DFNScale` (:500-527, here the scales of
+one `DFN`) and `ConvRefiner` (:530-680, both variants); reference:
+networks/dkm/models/dkm.py, networks/roma/roma.py:436-580.
 
 Layouts: flows (B, H, W, 2) and certainties (B, H, W, 1) are NHWC, as
 in the JAX package and as grids for `F.grid_sample`; so are the resizes
-and `GP`. Feature maps are PyTorch's NCHW: `local_correlation` and
-`ConvRefiner` take x, y (B, C, H, W).
+and `GP`. Feature maps are PyTorch's NCHW: `local_correlation`, `RRB`,
+`CAB`, `DFN` and `ConvRefiner` take them (B, C, H, W).
 
 The JAX package writes some of this math twice, a TPU layout beside the
 plain one (packed warps and correlation rows, Cholesky and CG solves);
@@ -153,14 +153,24 @@ class CosKernel:
 class GP(nn.Module):
     """Cosine-kernel GP regression of fourier position embeddings (ref
     dkm.py:257-370, no_cov=True, basis='fourier'). float32 throughout; the
-    callers turn TF32 off, so every product is full float32."""
+    callers turn TF32 off, so every product is full float32.
+
+    `bug_compat` reproduces the reference's batched inverse for n >
+    `bug_compat_min_n` (ref dkm.py:355-359; `gim_tpu/models/dkm/
+    blocks.py:412-425`): with more than one row, only row 0's K_yy is
+    solved and K_xy @ K_yy^-1 f broadcasts that solution to every row.
+    gim_dkm's eval graph turns it on (`DKMConfig.gp_inv_bug_compat`); at
+    660 x 880 its scale 16 has n = 42 x 55 = 2310."""
 
     def __init__(self, gp_dim: int = 256, T: float = 0.2,
-                 sigma_noise: float = 0.1):
+                 sigma_noise: float = 0.1, bug_compat: bool = False,
+                 bug_compat_min_n: int = 2000):
         super().__init__()
         self.gp_dim = gp_dim
         self.T = T
         self.sigma_noise = sigma_noise
+        self.bug_compat = bug_compat
+        self.bug_compat_min_n = bug_compat_min_n
         self.pos_conv = nn.Conv2d(2, gp_dim, 1)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -179,13 +189,89 @@ class GP(nn.Module):
         K_xy = K(xf, yf)
         K_yy = K(yf, yf)
         n = K_yy.shape[-1]
-        A = K_yy + self.sigma_noise * torch.eye(n, device=y.device)[None]
+        rows = 1 if self.bug_compat and n > self.bug_compat_min_n else B
+        A = K_yy[:rows] + self.sigma_noise * torch.eye(n, device=y.device)
         # one LU solve per image: on CUDA a batched call goes to MAGMA's
         # batched routines, which are meant for small matrices
         sol = torch.stack([torch.linalg.solve(A[b], ff[b])
-                           for b in range(B)])
-        mu = K_xy @ sol
+                           for b in range(rows)])
+        mu = K_xy @ sol                   # (rows, n, d) broadcasts to B
         return mu.reshape(B, x.shape[1], x.shape[2], self.gp_dim)
+
+
+class RRB(nn.Module):
+    """Refinement residual block (ref dkm.py:173-202): 1x1 conv, then
+    relu(x + conv3(relu(bn(conv2(x))))) with 3x3 convs."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: str = "float32"):
+        super().__init__()
+        self.dtype = torch_dtype(dtype)
+        self.conv1 = nn.Conv2d(in_dim, out_dim, 1)
+        self.conv2 = nn.Conv2d(out_dim, out_dim, 3, padding=1)
+        self.bn = nn.BatchNorm2d(out_dim)
+        self.conv3 = nn.Conv2d(out_dim, out_dim, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = conv(self.conv1, x, dt)
+        res = F.relu(batchnorm(self.bn, conv(self.conv2, x, dt), dt))
+        return F.relu(x + conv(self.conv3, res, dt))
+
+
+class CAB(nn.Module):
+    """Channel attention over the pair [x1, x2] (ref dkm.py:147-170):
+    g = sigmoid(conv2(relu(conv1(mean_hw [x1; x2])))), out g * x2 + x1."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: str = "float32"):
+        super().__init__()
+        self.dtype = torch_dtype(dtype)
+        self.conv1 = nn.Conv2d(in_dim, out_dim, 1)
+        self.conv2 = nn.Conv2d(out_dim, out_dim, 1)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        g = torch.cat([x1, x2], dim=1).mean((2, 3), keepdim=True)
+        g = F.relu(conv(self.conv1, g, dt))
+        g = torch.sigmoid(conv(self.conv2, g, dt))
+        return g * x2 + x1
+
+
+class DFN(nn.Module):
+    """DKM's embedding decoder (ref dkm.py:205-254, DKMv3.py:9-47): one
+    `DFNScale` (`gim_tpu/models/dkm/blocks.py:500-527`) per scale, its
+    modules held in per-scale dicts as the reference's state dict keys
+    them (`feat_input_modules.{s}`, `rrb_d.{s}`, `cab.{s}`, `rrb_u.{s}`,
+    `terminal_module.{s}`)."""
+
+    def __init__(self, scales=("32", "16"), in_dim: int = 512,
+                 feat_dim: int = 256, gp_dim: int = 256,
+                 internal_dim: int = 384, dtype: str = "float32"):
+        super().__init__()
+        self.dtype = torch_dtype(dtype)
+        self.feat_input_modules = nn.ModuleDict({
+            s: nn.Conv2d(in_dim, feat_dim, 1) for s in scales})
+        self.rrb_d = nn.ModuleDict({
+            s: RRB(feat_dim + gp_dim, internal_dim, dtype) for s in scales})
+        self.cab = nn.ModuleDict({
+            s: CAB(2 * internal_dim, internal_dim, dtype) for s in scales})
+        self.rrb_u = nn.ModuleDict({
+            s: RRB(internal_dim, internal_dim, dtype) for s in scales})
+        self.terminal_module = nn.ModuleDict({
+            s: nn.Conv2d(internal_dim, 3, 1) for s in scales})
+
+    def forward(self, s: str, embeddings: torch.Tensor, feats: torch.Tensor,
+                context: torch.Tensor):
+        """Scale `s`: embeddings (B, H, W, gp_dim) the GP posterior; feats
+        (B, C, H, W); context (B, internal_dim, H, W). Returns float32 flow
+        (B, H, W, 2) and certainty (B, H, W, 1), and the new context."""
+        dt = self.dtype
+        feats = conv(self.feat_input_modules[s], feats, dt)
+        emb = torch.cat([feats, embeddings.permute(0, 3, 1, 2).to(dt)], dim=1)
+        emb = self.rrb_d[s](emb)
+        context = self.rrb_u[s](self.cab[s](context.to(dt), emb))
+        preds = conv(self.terminal_module[s], context, dt).float().permute(
+            0, 2, 3, 1)
+        return preds[..., -2:], preds[..., :-2], context
 
 
 def _block(in_dim: int, out_dim: int) -> nn.Sequential:
@@ -203,11 +289,15 @@ def _run_block(block: nn.Sequential, x: torch.Tensor,
 
 
 class ConvRefiner(nn.Module):
-    """RoMa's depthwise conv refiner (ref dkm.py:11-123, roma.py:436-580):
-    the displacement embedding is scaled by 40/32 * scale_factor, the
-    local correlation is taken in the other image around the flow, and
-    out_conv gives the displacement before the certainty. 8 hidden blocks
-    of 5x5 depthwise convolutions, as every refiner of the repo has.
+    """Depthwise conv refiner of DKM and RoMa (ref dkm.py:11-123,
+    roma.py:436-580): the features, the other image's features warped by
+    the flow, a 1x1 embedding of emb_scale * (flow - grid) and, with a
+    radius, the local correlation in the other image around the flow;
+    then `block1` (a grouped 5x5 conv in_dim -> hidden_dim: at DKM's scale
+    1, 12 -> 24, two output channels per group), 8 hidden blocks of 5x5
+    depthwise convolutions and out_conv. DKM's out_conv gives [certainty,
+    dx, dy] and RoMa's [dx, dy, certainty] (`disp_first`); RoMa passes
+    emb_scale 40/32 * scale_factor, DKM 1.
 
     The hidden blocks run as kernel K2 (`ops/kernels/refiner.py`) when
     GIM_TPU_FUSED_REFINER is on, the module is in eval mode and
@@ -218,10 +308,11 @@ class ConvRefiner(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int,
                  displacement_emb_dim: int,
                  local_corr_radius: int | None = None,
-                 dtype: str = "float32"):
+                 disp_first: bool = False, dtype: str = "float32"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.local_corr_radius = local_corr_radius
+        self.disp_first = disp_first
         self.dtype = torch_dtype(dtype)
         self.block1 = _block(in_dim, hidden_dim)
         self.hidden_blocks = nn.Sequential(*[
@@ -260,4 +351,6 @@ class ConvRefiner(nn.Module):
             for blk in self.hidden_blocks:
                 d = _run_block(blk, d, dt)
         d = conv(self.out_conv, d, dt).float().permute(0, 2, 3, 1)
-        return d[..., -1:], d[..., :-1]
+        if self.disp_first:
+            return d[..., -1:], d[..., :-1]
+        return d[..., :-2], d[..., -2:]

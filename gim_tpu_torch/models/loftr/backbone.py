@@ -8,7 +8,9 @@ variant, ref networks/loftr/backbone/resnet.py:247-329 — Bottleneck
 GIM_TPU_GATHER_UPSAMPLE / GIM_TPU_UPSAMPLE_V2 variants are TPU layouts of
 the same math). Outputs: coarse 256ch @1/8, fine 128ch @1/2.
 
-Layout: NCHW inside; parameter names follow the reference state dict
+The trunk is the ResNet-50 that gim_dkm's encoder shares
+(`models/resnet.py`). Layout: NCHW inside; parameter names follow the
+reference state dict
 (`backbone.encode.layer1.0.conv1.weight`, `backbone.layer2_outconv2.3`,
 ...). BatchNorm uses its running statistics (eval).
 """
@@ -19,66 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    # symmetric padding k//2: torch pads a stride-2 3x3 by 1 on both sides
-    # (the JAX package passes ((1,1),(1,1)) explicitly for this)
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
-
-
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
-
-
-class Bottleneck(nn.Module):
-    """ResNet v1.5 bottleneck (stride on the 3x3)."""
-
-    expansion = 4
-
-    def __init__(self, cin: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
-        super().__init__()
-        self.conv1 = _conv(cin, planes, 1)
-        self.bn1 = _bn(planes)
-        self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = _bn(planes)
-        self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = _bn(planes * 4)
-        self.downsample = (nn.Sequential(_conv(cin, planes * 4, 1, stride),
-                                         _bn(planes * 4))
-                           if downsample else None)
-
-    def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        idn = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + idn)
-
-
-def _layer(cin: int, planes: int, blocks: int, stride: int) -> nn.Sequential:
-    layers = [Bottleneck(cin, planes, stride, downsample=True)]
-    layers += [Bottleneck(planes * 4, planes) for _ in range(1, blocks)]
-    return nn.Sequential(*layers)
-
-
-class ResNet50Trunk(nn.Module):
-    """conv1(7x7/2) + layer1..3, no maxpool (ref resnet.py:158-169,230-235)."""
-
-    def __init__(self):
-        super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = _bn(64)
-        self.layer1 = _layer(64, 64, 3, 1)      # 1/2, 256ch
-        self.layer2 = _layer(256, 128, 4, 2)    # 1/4, 512ch
-        self.layer3 = _layer(512, 256, 6, 2)    # 1/8, 1024ch
-
-    def forward(self, x):
-        x0 = F.relu(self.bn1(self.conv1(x)))
-        x1 = self.layer1(x0)
-        x2 = self.layer2(x1)
-        x3 = self.layer3(x2)
-        return x1, x2, x3
+from gim_tpu_torch.models.resnet import ResNet50, _bn, _conv
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +35,9 @@ class ResNetFPN(nn.Module):
     def __init__(self, block_dims=(64, 128, 196, 256, 512, 1024)):
         super().__init__()
         bd = block_dims
-        self.encode = ResNet50Trunk()
+        # conv1 + layer1..3, no maxpool (ref resnet.py:158-169,230-235):
+        # layer1 at 1/2 (256ch), layer2 at 1/4 (512ch), layer3 at 1/8
+        self.encode = ResNet50(num_layers=3, maxpool=False)
         self.layer3_outconv = _conv(1024, bd[3], 1)
         self.layer2_outconv = _conv(512, bd[3], 1)
         self.layer2_outconv2 = nn.Sequential(
@@ -106,7 +51,8 @@ class ResNetFPN(nn.Module):
     def forward(self, x):
         """x: (B, 3, H, W) -> coarse (B, 256, H/8, W/8), fine
         (B, 128, H/2, W/2)."""
-        x1, x2, x3 = self.encode(x)
+        # the stem's output is not kept: it would outlive the FPN
+        x1, x2, x3 = self.encode(x)[1:]
         x3_out = self.layer3_outconv(x3)
         x2_out = self.layer2_outconv(x2)
         x2_out = self.layer2_outconv2(x2_out + upsample2x_align_corners(x3_out))

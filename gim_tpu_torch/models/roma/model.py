@@ -157,7 +157,7 @@ class RoMaDecoder(nn.Module):
             for s, (cin, cout) in PROJ_SPECS.items()})
         self.conv_refiner = nn.ModuleDict({
             s: ConvRefiner(i, h, displacement_emb_dim=e, local_corr_radius=r,
-                           dtype=cfg.dtype)
+                           disp_first=True, dtype=cfg.dtype)
             for s, (i, h, e, r) in ROMA_REFINER_SPECS.items()})
 
     def forward(self, f1: dict, f2: dict, upsample: bool = False,

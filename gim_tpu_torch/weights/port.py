@@ -6,13 +6,15 @@ the reference torch state-dict keys, so a reference checkpoint loads with
 port.py:152-161; `normalize_gim_roma`, port.py:328-329). gim_roma's
 DINOv2 trunk is not in its checkpoint: it loads from the hub file
 `dinov2_vitl14_pretrain.pth` beside it (`gim_tpu/api.py:103-110`) and
-sits under `dinov2.` in the port's model.
+sits under `dinov2.` in the port's model. A gim_dkm checkpoint's keys
+carry `model.`, and it holds torchvision's unused `encoder.net.fc`
+(`port.py:258-261`).
 
-`loftr_state_dict_from_jax` and `roma_state_dict_from_jax` are the exact
-inverses of the JAX package's `port_loftr` and `port_roma` +
-`port_dinov2`: they turn a `{"params", "batch_stats"}` tree of numpy
-arrays into the port's state dicts, so both packages can run on the same
-weights.
+`loftr_state_dict_from_jax`, `roma_state_dict_from_jax` and
+`dkm_state_dict_from_jax` are the exact inverses of the JAX package's
+`port_loftr`, `port_roma` + `port_dinov2` and `port_dkm`: they turn a
+`{"params", "batch_stats"}` tree of numpy arrays into the port's state
+dicts, so both packages can run on the same weights.
 """
 
 from __future__ import annotations
@@ -114,10 +116,11 @@ class _FromJax:
         self.sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0)
 
 
-def _trunk_from_jax(u: _FromJax, fprefix: str, tprefix: str):
+def _trunk_from_jax(u: _FromJax, fprefix: str, tprefix: str,
+                    num_layers: int = 3):
     u.conv(f"{fprefix}/conv1", f"{tprefix}.conv1")
     u.batchnorm(f"{fprefix}/bn1", f"{tprefix}.bn1")
-    for li, blocks in (("1", 3), ("2", 4), ("3", 6)):
+    for li, blocks in (("1", 3), ("2", 4), ("3", 6), ("4", 3))[:num_layers]:
         for b in range(blocks):
             f = f"{fprefix}/layer{li}_{b}"
             t = f"{tprefix}.layer{li}.{b}"
@@ -268,3 +271,55 @@ def roma_state_dict_from_jax(variables: Mapping
     if left:
         raise ValueError(f"unmapped roma leaves: {left[:8]}")
     return roma_sd, u.sd
+
+
+# ---------------------------------------------------------------------------
+# gim_dkm
+# ---------------------------------------------------------------------------
+
+DKM_DROP = "encoder.net.fc."
+DKM_SCALES = ("16", "8", "4", "2", "1")
+
+
+def dkm_checkpoint_state_dict(sd: Mapping) -> dict[str, torch.Tensor]:
+    """A reference gim_dkm checkpoint's state dict as the port's DKMMatcher
+    loads it: 'model.' stripped, `encoder.net.fc.*` dropped
+    (gim_tpu/weights/port.py:258-261)."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len("model."):] if k.startswith("model.") else k
+        if not k.startswith(DKM_DROP):
+            out[k] = v
+    return out
+
+
+def dkm_state_dict_from_jax(variables: Mapping
+                            ) -> OrderedDict[str, torch.Tensor]:
+    """JAX DKMMatcher variables -> the port's DKMMatcher state dict (the
+    inverse of `gim_tpu.weights.port.port_dkm`). Raises if a leaf of the
+    tree is left over."""
+    u = _FromJax(variables)
+    _trunk_from_jax(u, "encoder", "encoder.net", num_layers=4)
+    emb = "decoder.embedding_decoder"
+    for s in ("32", "16"):
+        f = f"decoder/dfn_{s}"
+        u.conv(f"decoder/proj_{s}", f"decoder.proj.{s}")
+        u.conv(f"decoder/gp_{s}/pos_conv", f"decoder.gps.{s}.pos_conv")
+        u.conv(f"{f}/feat_input", f"{emb}.feat_input_modules.{s}")
+        for rrb in ("rrb_d", "rrb_u"):
+            u.conv(f"{f}/{rrb}/conv1", f"{emb}.{rrb}.{s}.conv1")
+            u.conv(f"{f}/{rrb}/conv2", f"{emb}.{rrb}.{s}.conv2")
+            u.batchnorm(f"{f}/{rrb}/bn", f"{emb}.{rrb}.{s}.bn")
+            u.conv(f"{f}/{rrb}/conv3", f"{emb}.{rrb}.{s}.conv3")
+        u.conv(f"{f}/cab/conv1", f"{emb}.cab.{s}.conv1")
+        u.conv(f"{f}/cab/conv2", f"{emb}.cab.{s}.conv2")
+        u.conv(f"{f}/terminal", f"{emb}.terminal_module.{s}")
+    for s in DKM_SCALES:
+        _refiner_from_jax(u, f"decoder/refiner_{s}",
+                          f"decoder.conv_refiner.{s}",
+                          u.count(f"decoder/refiner_{s}/hidden_"
+                                  + "{}_conv1/kernel"))
+    left = list(u.params) + [f"batch_stats/{k}" for k in u.stats]
+    if left:
+        raise ValueError(f"unmapped dkm leaves: {left[:8]}")
+    return u.sd
