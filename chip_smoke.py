@@ -15,7 +15,11 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    ((2, 1000, 1300, 256); (1, 70, 90, 32); one partial f0 block against
    S = 10816, masked), with timings of kernel, plain version and
    `torch.bmm` of the same f0 f1^T, beside the card's bound (products,
-   exp2s and bytes, whichever is largest);
+   exp2s and bytes, whichever is largest); and K1's float32 kernels
+   (dsmax_stats_f32, dsmax_argmax_f32) at ZEB's shape (1, 11025, 11025,
+   256) with an 840 x 630 content mask, against their plain sweeps and
+   the dense recipe, timed beside their FP32-FMA bound and `torch.bmm` in
+   float32 with TF32 off;
 4. main path: `Matcher("gim_loftr")` at full width (ResNet-50 FPN, 4
    coarse and 1 fine (self, cross) pairs) with seeded random weights at
    the bench operating point (bf16, fused matching, 2048 matches): 3
@@ -51,7 +55,18 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    one call without masks (aspect-pad); 32 K2 launches asserted per call;
    stage times and a profile;
 11. gim_dkm with the switch on against off, float32, TF32 off, 240 x 320
-   -> 384 x 512: warp and certainty agree.
+   -> 384 x 512: warp and certainty agree;
+12. ZEB geometry on the card: `eval.zeb.pair_metrics` (5-point RANSAC with
+   the MAGSAC preset, pose errors) on 4 ground-truth scenes of 8192 slots
+   (2000-8192 valid, 30 % and 60 % outliers), against the same call on
+   the CPU with the card's uniforms; ms, host syncs, launches and peak
+   memory of one call at batch 1; root_sift's device match against the
+   CPU on seeded descriptors;
+13. the ZEB path: `eval.zeb.evaluate` with the full-width gim_loftr
+   matcher in float32 with fused matching (K1's float32 kernels), 8192
+   slots at threshold 0, on 8 in-memory pairs of 840^2 canvases at batch
+   1; one launch of each float32 sweep per pair asserted; ms per pair
+   split into match and pair_metrics; the dump read back.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}.
@@ -77,6 +92,11 @@ from pathlib import Path
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_EX2 = 16 * 132 * PEAK_BF16_FLOPS / (132 * 4 * 1024)
+# float32 outside the tensor cores (data sheet, 67 TFLOP/s): 132 SMs x 128
+# FP32 lanes x 2 FLOP at the 1.98 GHz boost clock; phase 3 prints the rate
+# that the card's own maximum SM clock gives
+PEAK_F32_FLOPS = 66.9e12
+FP32_LANES_PER_SM = 128
 
 BATCH, IMG = 8, 832
 TOL_BF16, TOL_F32, MIN_AGREE = 1e-2, 1e-4, 0.999
@@ -103,12 +123,29 @@ DKM_K2_PER_CALL = 4 * HIDDEN_BLOCKS
 DKM_CANVAS, DKM_CONTENT = 840, (630, 840)     # (h, w) of the content
 ROMA_K3_PER_CALL = sum(n for _, n in FLASH_SHAPES)
 SWITCH_TOL = 1e-3     # warp (normalized coordinates) and certainty
+BF16_SWEEPS = ("dsmax_stats", "dsmax_argmax")
+F32_SWEEPS = ("dsmax_stats_f32", "dsmax_argmax_f32")
+# ZEB evaluation of gim_loftr (gim_tpu/cli/zeb_eval.py defaults): float32,
+# fused matching, batch 1 of 840^2 canvases (the 840 x 630 content of a
+# landscape image: 79 of 105 coarse rows), 8192 match slots, the MAGSAC
+# preset (2048 hypotheses, PROSAC on the match confidences)
+ZEB_CANVAS, ZEB_CONTENT = DKM_CANVAS, DKM_CONTENT
+ZEB_MATCHES, ZEB_PAIRS = 8192, 8
+# ground-truth scenes of phase 12: (valid slots, inlier share); pixel noise
+# 0.1 px against RANSAC's 0.5 px threshold. With noise near the threshold
+# the IRLS refits reach other local optima under rounding alone, in the
+# JAX package too (its jitted and eager runs), so card and CPU are held
+# to one optimum only where the problem has one
+ZEB_SCENES = ((8192, 0.7), (2000, 0.4), (5000, 0.7), (8192, 0.4))
+ZEB_NOISE_PX = 0.1
+POSE_MAX_DEG, POSE_DIFF_DEG, MASK_AGREE = 2.0, 0.5, 0.99
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
+    fmt = "csv,noheader" + ("" if units else ",nounits")
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
         f"nvidia-smi failed: {out.stderr.strip()}"
 
@@ -145,28 +182,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_terms(flops: float, nbytes: float, exps: float = 0.0):
-    """Least ms for each resource of bf16 work: tensor-core products, MUFU
-    exp2s and device-memory bytes."""
-    return {"products": flops / PEAK_BF16_FLOPS * 1e3,
+def bound_terms(flops: float, nbytes: float, exps: float = 0.0,
+                peak: float = PEAK_BF16_FLOPS):
+    """Least ms for each resource: products at `peak` (bf16 tensor cores by
+    default; PEAK_F32_FLOPS for float32 FMA), MUFU exp2s and device-memory
+    bytes."""
+    return {"products": flops / peak * 1e3,
             "exp2": exps / PEAK_EX2 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
 
 
-def bound(flops: float, nbytes: float, exps: float = 0.0):
-    """Least ms for bf16 work: the largest of the terms, and whether
-    operations (products, exp2s) or bytes set it."""
-    terms = bound_terms(flops, nbytes, exps)
+def bound(flops: float, nbytes: float, exps: float = 0.0,
+          peak: float = PEAK_BF16_FLOPS):
+    """Least ms: the largest of the terms, and whether operations
+    (products, exp2s) or bytes set it."""
+    terms = bound_terms(flops, nbytes, exps, peak)
     top = max(terms, key=terms.get)
     return terms[top], "bytes" if top == "bytes" else "operations"
 
 
-def sweep_costs(B: int, L: int, S: int, C: int, n_blocks: int):
-    """Work of each K1 sweep over (B, L, C) x (B, S, C) bf16 features:
-    product FLOPs, exp2s, bytes (each input read once, each output written
-    once) of the stats and the argmax sweep. Stats take two exp2s per score
-    (row side and column side); argmax none."""
+def sweep_costs(B: int, L: int, S: int, C: int, n_blocks: int,
+                elt: int = 2):
+    """Work of each K1 sweep over (B, L, C) x (B, S, C) features of `elt`
+    bytes: product FLOPs, exp2s, bytes (each input read once, each output
+    written once) of the stats and the argmax sweep. Stats take two exp2s
+    per score (row side and column side); argmax none."""
     flops = 2.0 * B * L * S * C
-    inputs = 2.0 * B * (L + S) * C + 4.0 * B * (L + S)      # features, masks
+    inputs = elt * B * (L + S) * C + 4.0 * B * (L + S)      # features, masks
     outputs = 2 * 4.0 * B * L + 2 * 4.0 * B * n_blocks * S  # rows, partials
     return {"dsmax_stats": (flops, 2.0 * B * L * S, inputs + outputs),
             "dsmax_argmax": (flops, 0.0,
@@ -178,6 +219,7 @@ class Smoke:
         self.failed: list[str] = []
         self.kernels: dict[str, dict] = {}
         self.card = ""
+        self.dev = "cuda"     # phases 12-13 read it; main() needs CUDA
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -327,6 +369,8 @@ class Smoke:
             b, l, c = f0.shape
             s = f1.shape[1]
             n = -(-l // K.block_rows(f0.dtype))
+            f32 = f0.dtype == torch.float32
+            peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
             t_lib = cuda_ms(lambda: torch.bmm(f0, f1.transpose(1, 2)), 10)
             out = {}
             for name, kfn, pfn in (
@@ -338,13 +382,15 @@ class Smoke:
                                             rowterm, inv_t),
                      lambda: K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm,
                                                   rowterm, inv_t))):
-                flops, exps, nbytes = sweep_costs(b, l, s, c, n)[name]
+                flops, exps, nbytes = sweep_costs(b, l, s, c, n,
+                                                  4 if f32 else 2)[name]
                 t_k = cuda_ms(kfn, 10)
                 t_p = cuda_ms(pfn, 2) if plain else None
-                terms = bound_terms(flops, nbytes, exps)
-                b_ms, b_by = bound(flops, nbytes, exps)
+                terms = bound_terms(flops, nbytes, exps, peak)
+                b_ms, b_by = bound(flops, nbytes, exps, peak)
                 top = max(terms, key=terms.get)
-                print(f"  {label} {name}: kernel {t_k:.3f} ms, "
+                print(f"  {label} {name}{'_f32' if f32 else ''}: kernel "
+                      f"{t_k:.3f} ms, "
                       f"{flops / t_k / 1e9:.1f} TFLOP/s, {t_k / b_ms:.2f}x "
                       f"its bound {b_ms:.3f} ms (set by {top}: products "
                       f"{terms['products']:.3f}, exp2 {terms['exp2']:.3f}, "
@@ -410,6 +456,47 @@ class Smoke:
         n_blocks = -(-L // block)
         print(f"  partials: {4 * B * n_blocks * L * 4 / 1e6:.1f} MB for "
               f"{n_blocks} row blocks of {block}")
+        self.k1_f32_zeb(feats, agreement, sweeps, timed, inv_t)
+
+    def k1_f32_zeb(self, feats, agreement, sweeps, timed, inv_t):
+        """K1's float32 kernels at ZEB's shape (the evaluation path, phase
+        13): one pair of 840^2 canvases, 105^2 coarse cells, C = 256, the
+        content mask of 840 x 630 (79 of 105 rows) on both images."""
+        import torch
+
+        from gim_tpu_torch.ops.kernels import dsmax as K
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        clock = nvidia_smi("clocks.max.sm", units=False)
+        try:
+            rate = sms * FP32_LANES_PER_SM * 2 * float(clock) * 1e6
+            print(f"  FP32 FMA peak from the card's clock: {sms} SMs x "
+                  f"{FP32_LANES_PER_SM} lanes x 2 x {clock} MHz = "
+                  f"{rate / 1e12:.1f} TFLOP/s (bound uses "
+                  f"{PEAK_F32_FLOPS / 1e12:.1f})")
+        except ValueError:
+            print(f"  FP32 FMA peak: clock not read ({clock})")
+        hc = ZEB_CANVAS // 8
+        L = hc * hc
+        rows = -(-ZEB_CONTENT[0] // 8)
+        z0, z1 = feats(1, L, L, torch.float32)
+        zm = (torch.arange(L, device=z0.device) < rows * hc)[None]
+        zmf = zm.float()
+        label = f"f32 ZEB {tuple(z0.shape)} masked ({rows} of {hc} rows)"
+        agreement(label, K.dual_softmax_mutual(z0, z1, 0.1, zm, zm),
+                  K.dual_softmax_mutual_plain(z0, z1, 0.1, zm, zm), zm,
+                  TOL_F32)
+        err_s, err_a, ct, rt = sweeps(label, z0, z1, zmf, zmf, inv_t)
+        for name, t in timed(label, z0, z1, zmf, zmf, ct, rt, inv_t,
+                             plain=True).items():
+            self.kernels[name + "_f32"] = {
+                "name": name + "_f32", "route": "cuda",
+                "source": "gim_tpu_torch/csrc/dsmax.cu",
+                "replaces": ("gim_tpu/ops/pallas_kernels/dsmax.py:48"
+                             if name == "dsmax_stats" else
+                             "gim_tpu/ops/pallas_kernels/dsmax.py:80"),
+                "launches": 0, "max_abs_err": err_s
+                if name == "dsmax_stats" else err_a, **t}
 
     # -- 4 ------------------------------------------------------------------
     def main_path(self):
@@ -458,8 +545,8 @@ class Smoke:
             times.append(time.perf_counter() - t0)
             calls += 1
             check(r)
-            for k, n in K.LAUNCHES.items():
-                assert n == calls, (k, n, calls)
+            for k in BF16_SWEEPS:
+                assert K.LAUNCHES[k] == calls, (k, K.LAUNCHES[k], calls)
         peak = torch.cuda.max_memory_allocated()
 
         # content masks: 832 x 624 content on the 832 x 832 canvas
@@ -489,10 +576,11 @@ class Smoke:
         print(f"  identical batch: {int(r.valid.sum())} valid matches, "
               f"share with i == j {same:.4f} (limit 0.9)")
         assert int(r.valid.sum()) >= 8 and same >= 0.9
-        counts = dict(K.LAUNCHES)
+        counts = {k: K.LAUNCHES[k] for k in BF16_SWEEPS}
         for k, n in counts.items():
             assert n == calls, (k, n, calls)
             self.kernels[k]["launches"] = n
+        assert all(K.LAUNCHES[k] == 0 for k in F32_SWEEPS), K.LAUNCHES
 
         ms = statistics.median(times) * 1e3
         print(f"  main path: {calls} match calls, K1 launches {counts}")
@@ -501,7 +589,7 @@ class Smoke:
               f"{BATCH / (ms / 1e3):.3f} pairs/s, peak memory "
               f"{peak / 2**30:.2f} GiB [{self.card}]")
         self.stages(m, batches[1])
-        self.profile(m, batches[2])
+        self.profile(lambda: m.match(*batches[2]))
 
     def timed_call(self, m, args, mods):
         """One `m.match(*args)` with a CUDA event recorded where each of
@@ -561,9 +649,10 @@ class Smoke:
         self.print_stages("one batch", spans, total,
                           "rest (input cast, expectation, coordinates)")
 
-    def profile(self, m, batch):
-        """Device time by kernel for one batch. Informational: a profiler
-        that cannot trace the card is reported, not a failed phase."""
+    def profile(self, fn, top: int = 20):
+        """Device time by kernel for one `fn()`. Informational: a profiler
+        that cannot trace the card is reported, not a failed phase.
+        Returns (device launches, device ms, window ms), or None."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -573,7 +662,7 @@ class Smoke:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                m.match(*batch)
+                fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             rows = []   # kernels only: operator rows repeat their time
@@ -583,17 +672,19 @@ class Smoke:
                     rows.append((t, e.key, e.count))
         except Exception as e:  # noqa: BLE001
             print(f"  profile: not measured ({type(e).__name__}: {e})")
-            return
+            return None
         if not rows:
             print("  profile: not measured (the profiler saw no device time)")
-            return
+            return None
         rows.sort(reverse=True)
         total = sum(t for t, _, _ in rows)
-        print(f"  profile: kernels {total / 1e3:.2f} ms in a "
-              f"{wall * 1e3:.2f} ms window, busy share "
-              f"{total / 1e6 / wall:.3f} [{self.card}]")
-        for t, key, n in rows[:20]:
+        launches = sum(n for _, _, n in rows)
+        print(f"  profile: {launches} device launches, kernels "
+              f"{total / 1e3:.2f} ms in a {wall * 1e3:.2f} ms window, busy "
+              f"share {total / 1e6 / wall:.3f} [{self.card}]")
+        for t, key, n in rows[:top]:
             print(f"    {t / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
+        return launches, total / 1e3, wall * 1e3
 
     # -- 5 ------------------------------------------------------------------
     def fused_vs_dense(self):
@@ -918,7 +1009,7 @@ class Smoke:
                   f"(runs {[round(t * 1e3, 2) for t in times]}), peak memory "
                   f"{peak / 2**30:.2f} GiB [{self.card}]")
             self.roma_stages(m, pairs[1])
-            self.profile(m, pairs[2])
+            self.profile(lambda: m.match(*pairs[2]))
         # the GP's solve (2304 x 2304, float32): one batched call against
         # one call per image, which the port makes
         A = torch.randn(2, 2304, 2304, device=dev, generator=g) / 48.0
@@ -1075,7 +1166,7 @@ class Smoke:
                   f"{[round(t * 1e3, 2) for t in times]}), peak memory "
                   f"{peak / 2**30:.2f} GiB [{self.card}]")
             self.dkm_stages(m, pairs[1])
-            self.profile(m, pairs[2])
+            self.profile(lambda: m.match(*pairs[2]))
 
     def dkm_stages(self, m, pair):
         """Time on the card's stream of each stage of one call; the
@@ -1132,6 +1223,302 @@ class Smoke:
         print("  240 x 320 -> 384 x 512, float32, TF32 off, switch on (K2) "
               "against off (PyTorch convolutions)")
 
+    # -- 12 -----------------------------------------------------------------
+    def zeb_geometry(self):
+        import warnings
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.eval import zeb as E
+        from gim_tpu_torch.geometry.ransac import draw_noise
+
+        dev = torch.device(self.dev)
+        n_hyp, _ = E.RANSAC_ZOO["MAGSAC"]
+        rng = np.random.default_rng(12)
+        scenes = [gt_scene(rng, ZEB_MATCHES, n, w, ZEB_NOISE_PX)
+                  for n, w in ZEB_SCENES]
+        host = [np.stack(x) for x in zip(*scenes)]    # p0 p1 valid K T
+        conf = rng.random(host[0].shape[:2]).astype(np.float32)
+        keys = [E.identifier_key(f"zeb_scene{i}#0#1")
+                for i in range(len(scenes))]
+        p0, p1, valid, K, Tm = (torch.from_numpy(a).to(dev) for a in host)
+        c = torch.from_numpy(conf).to(dev)
+
+        def call(sl):
+            return E.pair_metrics(p0[sl], p1[sl], valid[sl], K[sl], K[sl],
+                                  Tm[sl], keys[sl], 0.5, n_hyp, conf=c[sl])
+
+        card = {k: v.cpu().numpy() for k, v in call(slice(None)).items()}
+        # the CPU run takes the card's uniforms: each pair's generator on
+        # the card, seeded from its key, drawn again and copied over
+        gens = [torch.Generator(dev).manual_seed(E.seed_of(k)) for k in keys]
+        noise = tuple(n.cpu() for n in draw_noise(gens, n_hyp, ZEB_MATCHES,
+                                                  dev))
+        t0 = time.perf_counter()
+        cpu = E.pair_metrics(*(torch.from_numpy(a) for a in host[:4]),
+                             torch.from_numpy(host[3]),
+                             torch.from_numpy(host[4]), keys, 0.5, n_hyp,
+                             conf=torch.from_numpy(conf), noise=noise)
+        cpu = {k: v.numpy() for k, v in cpu.items()}
+        print(f"  {len(scenes)} scenes of {ZEB_MATCHES} slots, {n_hyp} "
+              f"hypotheses (MAGSAC preset), {ZEB_NOISE_PX} px noise; the "
+              f"CPU run took {time.perf_counter() - t0:.1f} s")
+        epi_ok = np.isclose(card["epi_errs"], cpu["epi_errs"], rtol=1e-4,
+                            atol=1e-8)
+        print(f"  epi_errs: card and CPU agree within rtol 1e-4 + atol "
+              f"1e-8 on {epi_ok.mean():.6f} of slots (limit 1)")
+        assert epi_ok.all()
+        for b, (n, w) in enumerate(ZEB_SCENES):
+            v = host[2][b]
+            errs = [max(d["R_errs"][b], d["t_errs"][b]) for d in (card, cpu)]
+            ok = [bool(np.isfinite(d["R_errs"][b])) for d in (card, cpu)]
+            agree = float((card["inliers"][b] == cpu["inliers"][b])[v].mean())
+            print(f"  scene {b} ({n} valid, {1 - w:.0%} outliers): max(R, t) "
+                  f"error card {errs[0]:.4f} deg, CPU {errs[1]:.4f} deg "
+                  f"(limits {POSE_MAX_DEG}, diff {POSE_DIFF_DEG}); "
+                  f"success {ok}; inlier masks agree on {agree:.6f} of "
+                  f"valid slots (limit {MASK_AGREE}); inliers "
+                  f"{int(card['inliers'][b].sum())} / "
+                  f"{int(cpu['inliers'][b].sum())}")
+            assert ok[0] and ok[1], b
+            assert max(errs) < POSE_MAX_DEG, b
+            assert abs(errs[0] - errs[1]) < POSE_DIFF_DEG, b
+            assert agree >= MASK_AGREE, b
+
+        # ZEB's batch of 1: time, host syncs, launches and memory per call
+        one = [slice(b, b + 1) for b in range(len(scenes))]
+        call(one[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for sl in one:
+            t0 = time.perf_counter()
+            call(sl)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call(one[1])
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message)]
+        print(f"  pair_metrics, 1 pair of {ZEB_MATCHES} slots: median "
+              f"{statistics.median(times):.2f} ms per call (runs "
+              f"{[round(t, 2) for t in times]}), {len(syncs)} host syncs "
+              f"per call, peak memory {peak / 2**30:.2f} GiB above the "
+              f"inputs [{self.card}]")
+        for msg in sorted(set(syncs)):
+            print(f"    sync: {msg.splitlines()[0][:110]}")
+        self.profile(lambda: call(one[2]), top=12)
+
+        # root_sift's device half: the card against the CPU
+        from gim_tpu_torch.models.root_sift import match_rootsift
+
+        n = 4096
+        d1 = rng.random((n, 128)).astype(np.float32) ** 4
+        d1 = np.sqrt(d1 / d1.sum(1, keepdims=True))
+        d0 = rng.random((n, 128)).astype(np.float32) ** 4
+        d0 = np.sqrt(d0 / d0.sum(1, keepdims=True))
+        src = rng.permutation(n)[:n // 2]
+        d0[:n // 2] = d1[src] + 0.01 * rng.random((n // 2, 128))
+        d0 = (d0 / np.linalg.norm(d0, axis=1, keepdims=True)).astype(
+            np.float32)
+        k = rng.uniform(0, 840, (n, 2)).astype(np.float32)
+        v0, v1 = rng.random(n) > 0.05, rng.random(n) > 0.05
+        args = (k, d0, v0, k, d1, v1)
+        mc, cc = match_rootsift(*(torch.from_numpy(a).to(dev) for a in args))
+        mh, ch = match_rootsift(*(torch.from_numpy(a) for a in args))
+        same = bool(torch.equal(mc.cpu(), mh))
+        print(f"  match_rootsift on {n} x 128 descriptors: "
+              f"{int((mh >= 0).sum())} matches, card and CPU indices "
+              f"identical: {same}, max conf diff "
+              f"{float((cc.cpu() - ch).abs().max()):.2e}")
+        assert same and int((mh >= 0).sum()) > n // 4
+
+    # -- 13 -----------------------------------------------------------------
+    def zeb_path(self):
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.cli.analysis import read_dump
+        from gim_tpu_torch.config import GimConfig, LoFTRConfig
+        from gim_tpu_torch.eval import zeb as E
+        from gim_tpu_torch.ops.kernels import dsmax as K
+
+        n_hyp, use_conf = E.RANSAC_ZOO["MAGSAC"]
+        cfg = GimConfig(loftr=LoFTRConfig(
+            fused_matching=True, max_matches=ZEB_MATCHES,
+            match_threshold=0.0))
+        m = Matcher("gim_loftr", cfg, generator=torch.Generator()
+                    .manual_seed(0), device=self.dev)
+        rng = np.random.default_rng(13)
+        batches = [zeb_batch(rng, i) for i in range(ZEB_PAIRS + 1)]
+        match_s, match_peak = [], []
+
+        def args(batch):
+            return tuple(batch[k] for k in ("color0", "color1", "scale0",
+                                            "scale1", "mask0", "mask1"))
+
+        def match(batch):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = m.match(*args(batch))
+            torch.cuda.synchronize()
+            match_s.append(time.perf_counter() - t0)
+            match_peak.append(torch.cuda.max_memory_allocated())
+            assert r.kpts0.shape == (1, ZEB_MATCHES, 2)
+            return r
+
+        stamps = []
+
+        def feed(bs):
+            for b in bs:
+                stamps.append(time.perf_counter())
+                yield b
+            stamps.append(time.perf_counter())
+
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        E.evaluate(match, feed(batches[:1]), num_hypotheses=n_hyp,
+                   use_conf=use_conf, progress=False)          # warm-up
+        torch.cuda.synchronize()
+        match_s.clear()
+        match_peak.clear()
+        stamps.clear()
+        rows = E.evaluate(match, feed(batches[1:]), num_hypotheses=n_hyp,
+                          use_conf=use_conf, progress=False)
+        peak = torch.cuda.max_memory_allocated()   # the last pair, whole
+        counts = dict(K.LAUNCHES)
+        print(f"  K1 launches over {ZEB_PAIRS + 1} pairs (one warm-up): "
+              f"{counts}")
+        for k in F32_SWEEPS:
+            assert counts[k] == ZEB_PAIRS + 1, (k, counts)
+            self.kernels[k]["launches"] = counts[k]
+        assert all(counts[k] == 0 for k in BF16_SWEEPS), counts
+
+        pair_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        match_ms = [t * 1e3 for t in match_s]
+        rest_ms = [p - q for p, q in zip(pair_ms, match_ms)]
+        med = statistics.median(pair_ms)
+        print(f"  gim_loftr f32, fused (K1 f32), {ZEB_MATCHES} slots at "
+              f"threshold 0, {ZEB_PAIRS} pairs of {ZEB_CANVAS}^2 canvases "
+              f"at batch 1, MAGSAC preset ({n_hyp} hypotheses): median "
+              f"{med:.2f} ms per pair, of which match "
+              f"{statistics.median(match_ms):.2f} ms and pair_metrics (with "
+              f"the host copies of the rows) "
+              f"{statistics.median(rest_ms):.2f} ms; "
+              f"{1e3 / med:.3f} pairs/s; peak memory {peak / 2**30:.2f} GiB "
+              f"per pair, {max(match_peak) / 2**30:.2f} GiB in the match "
+              f"[{self.card}]")
+        print(f"    per pair: total {[round(t, 2) for t in pair_ms]}, "
+              f"match {[round(t, 2) for t in match_ms]}")
+
+        n_valid = [len(r["epi_errs"]) for r in rows]
+        for r in rows:
+            assert np.isfinite(r["epi_errs"]).all() and len(r["epi_errs"]) > 0
+        with tempfile.TemporaryDirectory() as d:
+            path = E.write_dump(rows, d, "gim_loftr", "ZEB-memory", "smoke")
+            det = read_dump(path)
+        under5 = np.mean([max(float(a), float(b)) < 5.0 for a, b in
+                          zip(det["R_errs"], det["t_errs"])])
+        print(f"  dump: {len(det['R_errs'])} rows read back by "
+              f"cli/analysis.read_dump; valid matches per pair {n_valid}; "
+              f"share of pairs under 5 deg {under5:.3f} (seeded random "
+              f"weights: no quality claim)")
+        assert len(det["R_errs"]) == ZEB_PAIRS
+        self.stages(m, args(batches[1]))
+        self.profile(lambda: E.evaluate(match, iter(batches[1:2]),
+                                        num_hypotheses=n_hyp,
+                                        use_conf=use_conf, progress=False),
+                     top=12)
+        # informational: cuDNN's heuristics pick float32 algorithms (FFT
+        # among them) without timing them; the port leaves
+        # torch.backends.cudnn.benchmark at PyTorch's default (off)
+        torch.backends.cudnn.benchmark = True
+        try:
+            match(batches[1])                       # autotunes each shape
+            match_s.clear()
+            for b in batches[1:4]:
+                match(b)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        print(f"  match with torch.backends.cudnn.benchmark on (not the "
+              f"port's setting): median "
+              f"{statistics.median(match_s) * 1e3:.2f} ms per pair (runs "
+              f"{[round(t * 1e3, 2) for t in match_s]}), peak "
+              f"{max(match_peak) / 2**30:.2f} GiB [{self.card}]")
+
+
+def gt_scene(rng, m: int, n_valid: int, inlier_share: float,
+             noise_px: float, f: float = 600.0, im: int = 840):
+    """A ground-truth two-view scene in pixels: random pose and 3D points
+    projected through K, Gaussian noise, uniform outliers, the first
+    n_valid of m slots valid. Returns p0, p1 (m, 2), valid (m,), K (3, 3),
+    T_0to1 (4, 4), float32."""
+    import numpy as np
+
+    K = np.array([[f, 0, im / 2], [0, f, im / 2], [0, 0, 1.0]])
+    r = rng.uniform(-0.25, 0.25, 3)
+    th = np.linalg.norm(r)
+    k = r / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+    t = rng.standard_normal(3)
+    t = 0.5 * t / np.linalg.norm(t)
+    X = np.concatenate([rng.uniform(-3, 3, (m, 2)),
+                        rng.uniform(4, 12, (m, 1))], -1)
+    x0 = X @ K.T
+    x1 = (X @ R.T + t) @ K.T
+    p0 = x0[:, :2] / x0[:, 2:] + rng.standard_normal((m, 2)) * noise_px
+    p1 = x1[:, :2] / x1[:, 2:] + rng.standard_normal((m, 2)) * noise_px
+    out = rng.random(m) > inlier_share
+    p1[out] = rng.uniform(0, im, (int(out.sum()), 2))
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, t
+    return (p0.astype(np.float32), p1.astype(np.float32),
+            np.arange(m) < n_valid, K.astype(np.float32),
+            T.astype(np.float32))
+
+
+def zeb_batch(rng, i: int) -> dict:
+    """One ZEB batch (`data/zeb.batch_pairs` format) built in memory: an
+    840^2 canvas holding 840 x 630 of blocky texture, and the same texture
+    with its left half moved 8 px and its right half 24 px (two planes
+    under a sideways move: R = I, t along -x), content masks, K."""
+    import numpy as np
+
+    S = ZEB_CANVAS
+    h, w = ZEB_CONTENT
+    tex = np.repeat(np.repeat(rng.random((3, h // 4 + 1, w // 4)), 4, 1),
+                    4, 2)[:, :h].astype(np.float32)
+    c0 = np.zeros((1, 3, S, S), np.float32)
+    c0[0, :, :h, :w] = tex
+    c1 = np.zeros_like(c0)
+    half = w // 2
+    c1[0, :, :h, 8:half] = tex[:, :, :half - 8]
+    c1[0, :, :h, half + 24:w] = tex[:, :, half:w - 24]
+    mask = np.zeros((1, S, S), bool)
+    mask[0, :h, :w] = True
+    K = np.array([[[600.0, 0, w / 2], [0, 600.0, h / 2], [0, 0, 1]]],
+                 np.float32)
+    T = np.eye(4, dtype=np.float32)[None].copy()
+    T[0, 0, 3] = -1.0
+    return {"color0": c0, "color1": c1, "mask0": mask, "mask1": mask,
+            "scale0": np.ones((1, 2), np.float32),
+            "scale1": np.ones((1, 2), np.float32), "K0": K, "K1": K,
+            "T_0to1": T, "identifier": [f"zeb_memory#{i:04d}#{i:04d}s"],
+            "covisible0": [0.5], "covisible1": [0.5]}
+
 
 def main() -> int:
     try:
@@ -1169,6 +1556,8 @@ def main() -> int:
                 s.roma_switches_on_off)
         s.phase("10 gim_dkm main path", s.dkm_main_path)
         s.phase("11 gim_dkm switch on against off", s.dkm_switch_on_off)
+        s.phase("12 ZEB geometry on the card", s.zeb_geometry)
+        s.phase("13 ZEB path", s.zeb_path)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

@@ -2,9 +2,11 @@
 
 Port of `gim_tpu/api.py:27-140` and `:198-315`: build a matcher by name,
 feed a batch of image pairs, get a `MatchResult` of fixed-shape tensors
-with a validity mask. `gim_loftr`, `gim_dkm` and `gim_roma` are ported;
-the other heads raise `NotImplementedError` naming the slice of the port
-(ROADMAP.md) that brings them.
+with a validity mask. `gim_loftr`, `gim_dkm`, `gim_roma` and `root_sift`
+(`gim_tpu/api.py:129-132`, `:143-176`: SIFT on the host with cv2, the
+match on the device) are ported; `gim_lightglue` raises
+`NotImplementedError` naming the slice of the port (ROADMAP.md) that
+brings it.
 
 Entry points run on the GPU (`device="cuda"`, the default) unless the
 caller passes `device="cpu"`, and raise if CUDA is asked for and absent.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,7 +47,7 @@ class MatchResult:
 
 
 MODEL_ZOO = ("gim_lightglue", "gim_loftr", "gim_dkm", "gim_roma", "root_sift")
-_LATER_SLICE = {"gim_lightglue": 5, "root_sift": 6}
+_LATER_SLICE = {"gim_lightglue": 5}
 # the JAX package samples from PRNGKey(11) (gim_roma, gim_tpu/api.py:250)
 # and PRNGKey(7) (gim_dkm, :301)
 SAMPLE_SEED = {"gim_roma": 11, "gim_dkm": 7}
@@ -59,8 +62,11 @@ def _check_name(name: str):
             f"slice {_LATER_SLICE[name]} of the port (ROADMAP.md)")
 
 
-def build_model(name: str, cfg: C.GimConfig) -> torch.nn.Module:
+def build_model(name: str, cfg: C.GimConfig) -> torch.nn.Module | None:
+    """The head's module; None for root_sift, which has no weights."""
     _check_name(name)
+    if name == "root_sift":
+        return None
     if name == "gim_roma":
         return RoMaMatcher(cfg.roma)
     if name == "gim_dkm":
@@ -108,12 +114,14 @@ class Matcher:
         self.cfg = cfg or C.GimConfig()
         set_tf32(False)
         model = build_model(name, self.cfg)
-        init_weights(model, generator if generator is not None
-                     else torch.Generator().manual_seed(0))
-        if state_dict is not None:
-            _load(model, name, state_dict)
-        self.model = model.to(device=self.device,
-                              dtype=_model_dtype(name, self.cfg)).eval()
+        if model is not None:
+            init_weights(model, generator if generator is not None
+                         else torch.Generator().manual_seed(0))
+            if state_dict is not None:
+                _load(model, name, state_dict)
+            model = model.to(device=self.device,
+                             dtype=_model_dtype(name, self.cfg)).eval()
+        self.model = model
 
     @classmethod
     def from_checkpoint(cls, name: str, ckpt_path: str,
@@ -126,6 +134,8 @@ class Matcher:
         seeded random weights."""
         _check_name(name)
         resolve_device(device)
+        if name == "root_sift":
+            raise NotImplementedError(f"{name} has no checkpoint")
         raw = port.load_torch_state_dict(ckpt_path)
         if name == "gim_roma":
             side = os.path.join(os.path.dirname(ckpt_path),
@@ -156,8 +166,9 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
              device: str | torch.device = "cuda",
              generator: torch.Generator | None = None,
              sample_noise=None) -> MatchResult:
-    """Run `model` (built by `build_model`, on `device`) on a batch of
-    pairs. Inputs are moved to `device`; missing scales are ones.
+    """Run `model` (built by `build_model`, on `device`; None for
+    root_sift) on a batch of pairs. Inputs are moved to `device`; missing
+    scales are ones.
 
     gim_dkm and gim_roma sample their matches at random: from `generator`
     (default: a generator on `device` seeded at each call, 7 for gim_dkm
@@ -177,6 +188,8 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
               else torch.ones((B, 2), device=dev))
     image0 = put(image0, torch.float32)
     image1 = put(image1, torch.float32)
+    if name == "root_sift":
+        return _match_root_sift(image0, image1, scale0, scale1)
     mask0 = put(mask0, torch.bool)
     mask1 = put(mask1, torch.bool)
     with torch.inference_mode():
@@ -189,6 +202,38 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
         out = model(image0, image1, scale0, scale1, mask0, mask1)
     return MatchResult(out["mkpts0_f"], out["mkpts1_f"], out["mconf"],
                        out["valid"])
+
+
+def _match_root_sift(image0, image1, scale0, scale1,
+                     max_kpts: int = 6144) -> MatchResult:
+    """Host cv2 SIFT + RootSIFT, then mutual-NN + ratio 0.8 on the images'
+    device (`gim_tpu/api.py:143-176`); keypoints scaled to the original
+    frame, one (max_kpts,) slot per keypoint of image0."""
+    from gim_tpu_torch.models.root_sift import (detect_rootsift,
+                                                match_rootsift, pad_to)
+
+    dev = image0.device
+    k0s, k1s, cs, vs = [], [], [], []
+    for b in range(image0.shape[0]):
+        rgb0, rgb1 = ((img[b].permute(1, 2, 0).cpu().numpy() * 255)
+                      .astype(np.uint8) for img in (image0, image1))
+        kp0, d0 = detect_rootsift(rgb0)
+        kp1, d1 = detect_rootsift(rgb1)
+        kp0p, v0 = pad_to(kp0, max_kpts)
+        d0p, _ = pad_to(d0, max_kpts)
+        kp1p, v1 = pad_to(kp1, max_kpts)
+        d1p, _ = pad_to(d1, max_kpts)
+        m, conf = match_rootsift(*(torch.from_numpy(a).to(dev) for a in (
+            kp0p, d0p, v0, kp1p, d1p, v1)))
+        kp0t = torch.from_numpy(kp0p).to(dev)
+        kp1t = torch.from_numpy(kp1p).to(dev)
+        sel = m >= 0
+        k0s.append(kp0t * scale0[b][None])
+        k1s.append(kp1t[m.clamp_min(0)] * scale1[b][None])
+        cs.append(torch.where(sel, conf, 0.0))
+        vs.append(sel)
+    return MatchResult(torch.stack(k0s), torch.stack(k1s), torch.stack(cs),
+                       torch.stack(vs))
 
 
 def _mask_extent(mask, H: int, W: int):

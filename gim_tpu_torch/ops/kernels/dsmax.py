@@ -22,7 +22,9 @@ with torch ops between and after the sweeps, as the JAX package leaves
 them to XLA (`dsmax.py:226-258`). Each wrapper takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches its kernel or
 raises (`kernel_args` says what the kernel takes). `LAUNCHES` counts the
-kernel launches.
+launches of each of the four kernels: the bf16 sweeps under their names,
+the float32 ones (`dsmax_stats_f32`, `dsmax_argmax_f32` in the source)
+under theirs.
 
 `dual_softmax_mutual_plain` is the dense recipe (conf materialised one
 pair at a time), an independent reference for tests and the card check.
@@ -44,7 +46,8 @@ MAX_C = 256           # widest feature the kernels' shared memory holds
 C_STEP = 8            # C must be a multiple: TMA's 16-byte row stride
 ALIGN = 16            # bytes: TMA's rule for the feature bases
 
-LAUNCHES = {"dsmax_stats": 0, "dsmax_argmax": 0}
+LAUNCHES = {"dsmax_stats": 0, "dsmax_argmax": 0, "dsmax_stats_f32": 0,
+            "dsmax_argmax_f32": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -139,6 +142,11 @@ def _on_cuda(f0):
         raise ValueError(f"dsmax kernel needs CUDA tensors, got {f0.device}")
 
 
+def _counted(sweep: str, dtype: torch.dtype) -> str:
+    """The LAUNCHES key of a sweep's kernel for a feature dtype."""
+    return sweep + ("_f32" if dtype == torch.float32 else "")
+
+
 # ---------------------------------------------------------------------------
 # plain versions (same outputs, same row tiling)
 # ---------------------------------------------------------------------------
@@ -230,7 +238,7 @@ def dsmax_stats(f0, f1, m0, m1, inv_t: float):
                               cpsum.data_ptr(), stream)
     if err:
         raise RuntimeError(f"dsmax_stats launch failed: CUDA error {err}")
-    LAUNCHES["dsmax_stats"] += 1
+    LAUNCHES[_counted("dsmax_stats", f0.dtype)] += 1
     return rmax, rsum, cpmax, cpsum
 
 
@@ -255,7 +263,7 @@ def dsmax_argmax(f0, f1, m0, m1, colterm, rowterm, inv_t: float):
                                ipval.data_ptr(), stream)
     if err:
         raise RuntimeError(f"dsmax_argmax launch failed: CUDA error {err}")
-    LAUNCHES["dsmax_argmax"] += 1
+    LAUNCHES[_counted("dsmax_argmax", f0.dtype)] += 1
     return jbest, jval, ipidx, ipval
 
 

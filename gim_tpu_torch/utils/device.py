@@ -41,6 +41,19 @@ def set_tf32(enabled: bool) -> None:
     torch.backends.cudnn.allow_tf32 = enabled
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(name: str, value, device) -> torch.Tensor:
+    """The numpy constant `value` on `device`, copied there once per
+    (name, device): a host-to-device copy from pageable memory waits for
+    the stream, so a constant copied on every call would sync the host."""
+    key = (name, str(torch.device(device)))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.from_numpy(value).to(device)
+    return _CONSTANTS[key]
+
+
 def torch_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"unsupported dtype {name!r}; choose from "

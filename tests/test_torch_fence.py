@@ -79,7 +79,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
                          x, x)
 
 
-@pytest.mark.parametrize("name", ["gim_lightglue", "root_sift"])
+@pytest.mark.parametrize("name", ["gim_lightglue"])
 def test_unported_heads_name_their_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
         api.Matcher(name, device="cpu")
