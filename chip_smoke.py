@@ -10,16 +10,19 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
 2. build: every kernel of the path, from the sources in the checkout;
 3. kernel K1 (dsmax_stats, dsmax_argmax) against its plain PyTorch
    version at main-path shapes (8 pairs, L = S = 10816 coarse cells of
-   832 px, C = 256, bf16; unmasked, masked, well separated), on a ragged
-   float32 case and on ragged bf16 cases through the wgmma path
-   ((2, 1000, 1300, 256); (1, 70, 90, 32); one partial f0 block against
-   S = 10816, masked), with timings of kernel, plain version and
-   `torch.bmm` of the same f0 f1^T, beside the card's bound (products,
-   exp2s and bytes, whichever is largest); and K1's float32 kernels
-   (dsmax_stats_f32, dsmax_argmax_f32) at ZEB's shape (1, 11025, 11025,
-   256) with an 840 x 630 content mask, against their plain sweeps and
-   the dense recipe, timed beside their FP32-FMA bound and `torch.bmm` in
-   float32 with TF32 off;
+   832 px, C = 256, bf16; unmasked, masked, well separated) and on ragged
+   bf16 cases through the wgmma path ((2, 1000, 1300, 256); (1, 70, 90,
+   32); one partial f0 block against S = 10816, masked), with timings of
+   kernel, plain version and `torch.bmm` of the same f0 f1^T, beside the
+   card's bound (products, exp2s and bytes, whichever is largest); and
+   K1's float32 kernels (dsmax_stats_f32, dsmax_argmax_f32: the SIMT
+   kernel, S in chunks) at the same breadth: ragged (2, 1000, 1300, 256),
+   (1, 70, 90, 32) masked, (1, 100, 11025, 256) masked and ZEB's shape
+   (1, 11025, 11025, 256) with an 840 x 630 content mask, plus planted
+   ties across a chunk border and a row-block border (exact), against
+   their plain sweeps in the kernel's partial layout and the dense
+   recipe, timed beside their FP32-FMA bound and `torch.bmm` in float32
+   with TF32 off;
 4. main path: `Matcher("gim_loftr")` at full width (ResNet-50 FPN, 4
    coarse and 1 fine (self, cross) pairs) with seeded random weights at
    the bench operating point (bf16, fused matching, 2048 matches): 3
@@ -201,14 +204,15 @@ def bound(flops: float, nbytes: float, exps: float = 0.0,
 
 
 def sweep_costs(B: int, L: int, S: int, C: int, n_blocks: int,
-                elt: int = 2):
+                elt: int = 2, chunks: int = 1):
     """Work of each K1 sweep over (B, L, C) x (B, S, C) features of `elt`
     bytes: product FLOPs, exp2s, bytes (each input read once, each output
-    written once) of the stats and the argmax sweep. Stats take two exp2s
-    per score (row side and column side); argmax none."""
+    written once: row partials over `chunks` chunks of S, column partials
+    over `n_blocks` row blocks) of the stats and the argmax sweep. Stats
+    take two exp2s per score (row side and column side); argmax none."""
     flops = 2.0 * B * L * S * C
     inputs = elt * B * (L + S) * C + 4.0 * B * (L + S)      # features, masks
-    outputs = 2 * 4.0 * B * L + 2 * 4.0 * B * n_blocks * S  # rows, partials
+    outputs = 2 * 4.0 * B * L * chunks + 2 * 4.0 * B * n_blocks * S
     return {"dsmax_stats": (flops, 2.0 * B * L * S, inputs + outputs),
             "dsmax_argmax": (flops, 0.0,
                              inputs + 4.0 * B * (L + S) + outputs)}
@@ -319,32 +323,37 @@ class Smoke:
                   K.dual_softmax_mutual_plain(f0, f1, 0.1, m0, m1), m0,
                   TOL_BF16)
 
-        r0, r1 = feats(2, 1000, 1300, torch.float32)
-        agreement("f32 ragged L=1000 S=1300",
-                  K.dual_softmax_mutual(r0, r1, 0.1),
-                  K.dual_softmax_mutual_plain(r0, r1, 0.1), None, TOL_F32)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+        def chunks_of(f0, f1):
+            return K.sweep_chunks(f0.dtype, f0.shape[0], f0.shape[1],
+                                  f1.shape[1], sms)
 
         def sweeps(label, f0, f1, m0f, m1f, inv_t):
-            """Each sweep against its plain version on the same inputs:
-            log-domain statistics within 1e-3, indices on >= 99.9 % of
-            rows and column partials. Returns the two errors and the
-            argmax sweep's terms."""
-            ks = K.dsmax_stats(f0, f1, m0f, m1f, inv_t)
-            ps = K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t)
-            assert ks[2].shape == ps[2].shape, (ks[2].shape, ps[2].shape)
+            """Each sweep against its plain version on the same inputs, in
+            the kernel's layout (row partials over the wrapper's chunks of
+            S, column partials over row blocks): log-domain statistics
+            within 1e-3, indices on >= 99.9 % of row and column partials.
+            Returns the two errors, the argmax sweep's terms and both
+            sweeps' partials (kernel, plain)."""
+            n = chunks_of(f0, f1)
+            ks = K.stats_sweep(f0, f1, m0f, m1f, inv_t, n)
+            ps = K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t, chunks=n)
+            assert [k.shape for k in ks] == [p.shape for p in ps], label
             err_s = max(float((ks[0] - ps[0]).abs().max()),
                         float((ks[1].log() - ps[1].log()).abs().max()),
                         float((ks[2] - ps[2]).abs().max()),
                         float((ks[3].log() - ps[3].log()).abs().max()))
-            rowterm = torch.where(m0f > 0, ps[0] + ps[1].log(),
+            rmax, rsum = K.merge_row_stats(ps[0], ps[1])
+            rowterm = torch.where(m0f > 0, rmax + rsum.log(),
                                   0.0).contiguous()
             cmax = ps[2].amax(1)
             csum = (ps[3] * torch.exp(ps[2] - cmax[:, None])).sum(1)
             colterm = torch.where(m1f > 0, cmax + csum.clamp_min(1e-30).log(),
                                   0.0).contiguous()
-            ka = K.dsmax_argmax(f0, f1, m0f, m1f, colterm, rowterm, inv_t)
+            ka = K.argmax_sweep(f0, f1, m0f, m1f, colterm, rowterm, inv_t, n)
             pa = K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm, rowterm,
-                                      inv_t)
+                                      inv_t, chunks=n)
             j_eq = ka[0] == pa[0]
             i_eq = ka[2] == pa[2]
             j_share = float(j_eq.float().mean())
@@ -355,11 +364,12 @@ class Smoke:
                   f"statistics {err_s:.3e} (limit 1e-3); dsmax_argmax row "
                   f"index agrees {j_share:.6f}, column partial index agrees "
                   f"{i_share:.6f}, max abs err of the maxima {err_a:.3e} "
-                  f"(limits {MIN_AGREE}, 1e-3); {ks[2].shape[1]} row blocks")
+                  f"(limits {MIN_AGREE}, 1e-3); {ks[2].shape[1]} row blocks x "
+                  f"{n} chunks of S")
             assert err_s <= 1e-3, label
             assert j_share >= MIN_AGREE and i_share >= MIN_AGREE, label
             assert err_a <= 1e-3, label
-            return err_s, err_a, colterm, rowterm
+            return err_s, err_a, colterm, rowterm, (ka, pa)
 
         def timed(label, f0, f1, m0f, m1f, colterm, rowterm, inv_t,
                   plain=False):
@@ -369,21 +379,24 @@ class Smoke:
             b, l, c = f0.shape
             s = f1.shape[1]
             n = -(-l // K.block_rows(f0.dtype))
+            ch = chunks_of(f0, f1)
             f32 = f0.dtype == torch.float32
             peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
             t_lib = cuda_ms(lambda: torch.bmm(f0, f1.transpose(1, 2)), 10)
             out = {}
             for name, kfn, pfn in (
                     ("dsmax_stats",
-                     lambda: K.dsmax_stats(f0, f1, m0f, m1f, inv_t),
-                     lambda: K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t)),
+                     lambda: K.stats_sweep(f0, f1, m0f, m1f, inv_t, ch),
+                     lambda: K.dsmax_stats_plain(f0, f1, m0f, m1f, inv_t,
+                                                 chunks=ch)),
                     ("dsmax_argmax",
-                     lambda: K.dsmax_argmax(f0, f1, m0f, m1f, colterm,
-                                            rowterm, inv_t),
+                     lambda: K.argmax_sweep(f0, f1, m0f, m1f, colterm,
+                                            rowterm, inv_t, ch),
                      lambda: K.dsmax_argmax_plain(f0, f1, m0f, m1f, colterm,
-                                                  rowterm, inv_t))):
+                                                  rowterm, inv_t,
+                                                  chunks=ch))):
                 flops, exps, nbytes = sweep_costs(b, l, s, c, n,
-                                                  4 if f32 else 2)[name]
+                                                  4 if f32 else 2, ch)[name]
                 t_k = cuda_ms(kfn, 10)
                 t_p = cuda_ms(pfn, 2) if plain else None
                 terms = bound_terms(flops, nbytes, exps, peak)
@@ -405,33 +418,42 @@ class Smoke:
         # main-path shapes, masked inputs
         m0f, m1f = m0.float(), m1.float()
         inv_t = 10.0
-        err_s, err_a, colterm, rowterm = sweeps(
+        err_s, err_a, colterm, rowterm, _ = sweeps(
             f"bf16 masked {tuple(f0.shape)}", f0, f1, m0f, m1f, inv_t)
 
-        # ragged bf16 cases through the wgmma path: L and S not multiples of
-        # the 128-row blocks or the 64-row tiles; C < 64 (a zero-filled
-        # 64-column box); one partial f0 block against the main path's S
-        ragged = []
-        for b, l, s, c, masked in ((2, 1000, 1300, 256, False),
-                                   (1, 70, 90, 32, True),
-                                   (1, 100, L, 256, True)):
-            r0 = torch.randn(b, l, c, device=dev, generator=g) / c ** 0.25
-            r1 = torch.randn(b, s, c, device=dev, generator=g) / c ** 0.25
-            r0, r1 = r0.bfloat16(), r1.bfloat16()
-            rm0 = rm1 = None
-            if masked:
-                rm0 = torch.rand(b, l, device=dev, generator=g) > 0.25
-                rm1 = torch.rand(b, s, device=dev, generator=g) > 0.25
-            label = f"bf16 ragged {(b, l, s, c)}{' masked' if masked else ''}"
-            agreement(label, K.dual_softmax_mutual(r0, r1, 0.1, rm0, rm1),
-                      K.dual_softmax_mutual_plain(r0, r1, 0.1, rm0, rm1),
-                      rm0, TOL_BF16)
-            rm0f = (torch.ones(b, l, device=dev) if rm0 is None
-                    else rm0.float())
-            rm1f = (torch.ones(b, s, device=dev) if rm1 is None
-                    else rm1.float())
-            _, _, ct, rt = sweeps(label, r0, r1, rm0f, rm1f, inv_t)
-            ragged.append((label, r0, r1, rm0f, rm1f, ct, rt))
+        def ragged_cases(kind, dtype, s_main, tol, gen):
+            """Ragged cases: L and S not multiples of the kernels' blocks
+            or tiles; C < 64 (bf16: a zero-filled 64-column box); one
+            partial f0 block against the main path's S, masked. Each
+            against the dense recipe and its plain sweeps; returns the
+            timing arguments."""
+            out = []
+            for b, l, s, c, masked in ((2, 1000, 1300, 256, False),
+                                       (1, 70, 90, 32, True),
+                                       (1, 100, s_main, 256, True)):
+                r0 = (torch.randn(b, l, c, device=dev, generator=gen)
+                      / c ** 0.25).to(dtype)
+                r1 = (torch.randn(b, s, c, device=dev, generator=gen)
+                      / c ** 0.25).to(dtype)
+                rm0 = rm1 = None
+                if masked:
+                    rm0 = torch.rand(b, l, device=dev, generator=gen) > 0.25
+                    rm1 = torch.rand(b, s, device=dev, generator=gen) > 0.25
+                label = (f"{kind} ragged {(b, l, s, c)}"
+                         f"{' masked' if masked else ''}")
+                agreement(label, K.dual_softmax_mutual(r0, r1, 0.1, rm0, rm1),
+                          K.dual_softmax_mutual_plain(r0, r1, 0.1, rm0, rm1),
+                          rm0, tol)
+                rm0f = (torch.ones(b, l, device=dev) if rm0 is None
+                        else rm0.float())
+                rm1f = (torch.ones(b, s, device=dev) if rm1 is None
+                        else rm1.float())
+                _, _, ct, rt, _ = sweeps(label, r0, r1, rm0f, rm1f, inv_t)
+                out.append((label, r0, r1, rm0f, rm1f, ct, rt))
+            return out
+
+        # ragged bf16 cases through the wgmma path (64-row tiles)
+        ragged = ragged_cases("bf16", torch.bfloat16, L, TOL_BF16, g)
 
         # timings: main-path shapes, then the ragged cases
         main = timed(f"bf16 {tuple(f0.shape)} x {tuple(f1.shape)}", f0, f1,
@@ -456,16 +478,23 @@ class Smoke:
         n_blocks = -(-L // block)
         print(f"  partials: {4 * B * n_blocks * L * 4 / 1e6:.1f} MB for "
               f"{n_blocks} row blocks of {block}")
-        self.k1_f32_zeb(feats, agreement, sweeps, timed, inv_t)
+        self.k1_f32(feats, agreement, sweeps, timed, inv_t, chunks_of,
+                    ragged_cases)
 
-    def k1_f32_zeb(self, feats, agreement, sweeps, timed, inv_t):
-        """K1's float32 kernels at ZEB's shape (the evaluation path, phase
-        13): one pair of 840^2 canvases, 105^2 coarse cells, C = 256, the
-        content mask of 840 x 630 (79 of 105 rows) on both images."""
+    def k1_f32(self, feats, agreement, sweeps, timed, inv_t, chunks_of,
+               ragged_cases):
+        """K1's float32 kernels (the ZEB path, phase 13) at the bf16
+        cases' breadth: ragged shapes, masked and not, one partial f0 block
+        against ZEB's S; planted ties across a chunk border and a row-block
+        border; ZEB's shape, one pair of 840^2 canvases, 105^2 coarse
+        cells, C = 256, the content mask of 840 x 630 (79 of 105 rows) on
+        both images, timed."""
         import torch
 
         from gim_tpu_torch.ops.kernels import dsmax as K
 
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(7)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         clock = nvidia_smi("clocks.max.sm", units=False)
         try:
@@ -478,15 +507,24 @@ class Smoke:
             print(f"  FP32 FMA peak: clock not read ({clock})")
         hc = ZEB_CANVAS // 8
         L = hc * hc
-        rows = -(-ZEB_CONTENT[0] // 8)
+        ragged = ragged_cases("f32", torch.float32, L, TOL_F32, g)
+
+        self.k1_f32_ties(agreement, sweeps, inv_t, chunks_of, g)
+
         z0, z1 = feats(1, L, L, torch.float32)
+        rows = -(-ZEB_CONTENT[0] // 8)
         zm = (torch.arange(L, device=z0.device) < rows * hc)[None]
         zmf = zm.float()
+        n = chunks_of(z0, z1)
+        n_rb = -(-L // K.block_rows(z0.dtype))
+        print(f"  f32 ZEB grid: {n_rb} row blocks x {n} chunks of "
+              f"{K.chunk_span(L, n)} columns = {n_rb * n} blocks on {sms} "
+              f"SMs ({n_rb * n / sms:.3f} waves)")
         label = f"f32 ZEB {tuple(z0.shape)} masked ({rows} of {hc} rows)"
         agreement(label, K.dual_softmax_mutual(z0, z1, 0.1, zm, zm),
                   K.dual_softmax_mutual_plain(z0, z1, 0.1, zm, zm), zm,
                   TOL_F32)
-        err_s, err_a, ct, rt = sweeps(label, z0, z1, zmf, zmf, inv_t)
+        err_s, err_a, ct, rt, _ = sweeps(label, z0, z1, zmf, zmf, inv_t)
         for name, t in timed(label, z0, z1, zmf, zmf, ct, rt, inv_t,
                              plain=True).items():
             self.kernels[name + "_f32"] = {
@@ -497,6 +535,56 @@ class Smoke:
                              "gim_tpu/ops/pallas_kernels/dsmax.py:80"),
                 "launches": 0, "max_abs_err": err_s
                 if name == "dsmax_stats" else err_a, **t}
+        for label, *args in ragged:
+            timed(label, *args, inv_t)
+
+    def k1_f32_ties(self, agreement, sweeps, inv_t, chunks_of, g):
+        """Planted ties through the float32 kernels, against the plain
+        sweeps and the dense recipe, exact: a row whose two best columns
+        lie in different chunks of S, and a column whose two best rows lie
+        in different row blocks; both go to the first index."""
+        import torch
+
+        from gim_tpu_torch.ops.kernels import dsmax as K
+
+        dev = torch.device("cuda")
+        n, c = 1300, 256
+        f0 = torch.randn(1, n, c, device=dev, generator=g) / c ** 0.25
+        perm = torch.randperm(n, device=dev, generator=g)
+        f1 = f0[:, perm] + 0.05 * torch.randn(1, n, c, device=dev,
+                                              generator=g) / c ** 0.25
+        ch = chunks_of(f0, f1)
+        span = K.chunk_span(n, ch)
+        i1, i2 = 5, 1000                  # row blocks 0 and 7
+        j1 = next(j for j in range(100, n) if int(perm[j]) not in (i1, i2))
+        j2 = next(j for j in range(j1 + span, n)
+                  if int(perm[j]) not in (i1, i2))
+        f0[:, i2] = f0[:, i1]
+        f1[:, j2] = f1[:, j1]
+        assert j1 // span != j2 // span and ch > 1, (ch, span, j1, j2)
+        got = K.dual_softmax_mutual(f0, f1, 0.1)
+        agreement(f"f32 planted ties (1, {n}, {n}, {c}): columns {j1}, {j2} "
+                  f"in chunks {j1 // span}, {j2 // span} of {ch}; rows {i1}, "
+                  f"{i2} in blocks {i1 // 128}, {i2 // 128}", got,
+                  K.dual_softmax_mutual_plain(f0, f1, 0.1), None, TOL_F32,
+                  exact=True)
+        jb, _, mu = got
+        row = int(perm[j1])
+        col = int((perm == i1).nonzero()[0, 0])
+        assert int(jb[0, row]) == j1 and bool(mu[0, row]), (row, j1)
+        assert int(jb[0, i1]) == int(jb[0, i2]) == col, (i1, i2, col)
+        assert bool(mu[0, i1]) and not bool(mu[0, i2]), (i1, i2)
+        ones = torch.ones(1, n, device=dev)
+        *_, (ka, pa) = sweeps("f32 planted ties", f0, f1, ones, ones, inv_t)
+        k_row = K.merge_row_argmax(ka[0], ka[1])[0]
+        p_row = K.merge_row_argmax(pa[0], pa[1])[0]
+        ib_k = ka[2].gather(1, ka[3].argmax(1, keepdim=True))[:, 0]
+        ib_p = pa[2].gather(1, pa[3].argmax(1, keepdim=True))[:, 0]
+        assert torch.equal(k_row, p_row) and int(k_row[0, row]) == j1
+        assert torch.equal(ib_k, ib_p) and int(ib_k[0, col]) == i1
+        print(f"  f32 planted ties: row {row} -> column {j1} (not {j2}), "
+              f"column {col} -> row {i1} (not {i2}), kernel and plain "
+              f"sweeps identical on every row and column")
 
     # -- 4 ------------------------------------------------------------------
     def main_path(self):

@@ -11,7 +11,8 @@
 //     log conf_ij = 2 sim_ij - rowterm_i - colterm_j. Rows: argmax_j of
 //     2 sim - colterm_j; columns: argmax_i of 2 sim - rowterm_i as per-
 //     row-block partials.
-// The partials are reduced by the caller (gim_tpu_torch/ops/kernels/
+// The float32 kernel also leaves its row outputs as partials over chunks of
+// S. The partials are reduced by the caller (gim_tpu_torch/ops/kernels/
 // dsmax.py), as the JAX package reduces them outside its kernel. Blocks
 // run in no order and nothing is carried between them, so results do not
 // depend on run order.
@@ -52,8 +53,8 @@
 //     rare.
 // The epilogue, not the product, sets the pace: it is longer than the
 // product it runs beside (PERF.md, PR 4).
-// float32 inputs take a plain FMA kernel in full float32 (no TF32, 64-row
-// blocks, sim tiles in shared memory), for checks on the card.
+// float32 inputs (ZEB's path) take a SIMT kernel of their own in full
+// float32, on the FMA pipes, with S cut into chunks (below).
 
 #include <cmath>
 
@@ -534,276 +535,509 @@ int dispatch_bf16(const void* f0, const void* f1, int B, int C, const Args& a,
 }
 
 // ---------------------------------------------------------------------------
-// float32: plain FMA, 64-row blocks, sim tiles staged in shared memory
+// float32: register-tiled SIMT product on the FMA pipes (no TF32)
 // ---------------------------------------------------------------------------
+//
+// What bounds it: 2 L S C FLOP of FP32 FMA per pair (ZEB's L = S = 11025,
+// C = 256: 62.2 GFLOP, 0.930 ms at the H100's 66.9 TFLOP/s outside the
+// tensor cores); the stats sweep's two exp2s per score (0.06 ms of MUFU)
+// and the 22 MB of features do not set the pace. The path stays full
+// float32 (callers turn TF32 off on purpose), so the product runs on the
+// FMA pipes, and the design is about feeding them:
+//   - a block owns 128 rows of f0 and one chunk of S. Its f0 rows stay in
+//     shared memory for the whole chunk, staged transposed (k-major,
+//     [k][row], 132 floats a k); f1 streams through a 4-stage ring of
+//     128-row x 32-k slices as it lies in memory (K-contiguous, 36 floats
+//     a row): 16-byte cp.async copies (zero fill past the chunk's end and
+//     past C) that every thread issues and tracks on the stage's "full"
+//     mbarrier (cp.async.mbarrier.arrive.noinc), slice s + 3 issued while
+//     slice s is multiplied. Each warp releases a stage on its "empty"
+//     mbarrier when its product is done, so the loop has no block-wide
+//     barrier (with one __syncthreads per slice, waiting at the barrier
+//     took 12 % of a tile: PERF.md);
+//   - a thread owns 8 x 8 scores: rows wm 32 + 4 lm + {0..3, 16..19} of
+//     the block, columns wn 64 + ln + 8 q of the tile (warp = wn 4 + wm,
+//     lane = 8 lm + ln). Per 4 k it reads its 8 columns as float4 along K
+//     (8 LDS.128, 32 registers) and, per k, its 8 rows as two float4 of
+//     the k-major f0 (2 LDS.128, 8 registers): 16 LDS.128 for 256 FFMA,
+//     0.25 shared words per FMA. The lanes that share ln (or lm) read one
+//     address; f1's stride of 36 floats (1 mod 8 in 16-byte units) puts the
+//     8 rows an instruction reads in 8 bank groups, and f0's 4 float4 are
+//     contiguous, so each LDS.128 is one wavefront. With both operands
+//     K-contiguous a float4 holds one row's 4 k: 64 operand registers per
+//     4 k, no room to prefetch at the 255-register cap (a warp's product
+//     ran at 0.77-0.80 of the FFMA rate, here 0.82-0.88); with both
+//     k-major, f1's 4-byte copies cost more waiting than the product
+//     gained (PERF.md).
+//     f0's transpose costs 4-byte copies once per block: a warp copies
+//     8 k x 4 rows (four 32-byte sectors) into 32 distinct banks (132 = 4
+//     mod 32);
+//   - both reductions stay on registers, as in the bf16 kernel: each
+//     thread keeps an online state (max and sum in the log2 domain, or
+//     best value and column) for its 8 rows across the whole chunk, merged
+//     across lanes and the two column warps once, at the end; a column's
+//     partial over the block's 128 rows is reduced over 8 registers, over
+//     the 4 lanes of its column (shuffles), then across the 4 row warps of
+//     its column half in a shared exchange behind a named barrier of those
+//     4 warps, once per tile. No score goes to shared memory. Scale and
+//     mask are one FFMA per score and side; the argmax keeps the first
+//     index with selects (a thread's rows and columns rise with p and q);
+//   - S is cut into chunks (the wrapper picks how many) so that the
+//     (row block, chunk) blocks fill the card at B = 1 (ZEB: 87 row blocks
+//     x 3 chunks = 261 blocks, 2 waves of 132 SMs less 3). Each block
+//     leaves row partials (B, chunks, L), merged by the caller as it
+//     merges the column partials.
+// Every score's sum runs over k in order 0..C-1 in one thread, so equal
+// feature rows give bit-equal scores and planted ties stay exact.
+// What sets its pace (PERF.md): one block of 8 warps fits an SM (217 KB
+// of shared memory), so each scheduler has two warps to cover the
+// latencies of shared loads, ring barriers and the epilogue. A tile runs
+// at 0.64 of the FFMA rate in clocks, and at 0.67 with f1's copies taken
+// out; under this load the card clocks at about 1.7 GHz, not the 1.98 GHz
+// of the bound. At ZEB's shape that is level with torch.bmm's SGEMM.
 
-constexpr int BM_F32 = 64;        // rows of f0 per block
-constexpr int BN_F32 = 64;        // rows of f1 per column tile
-constexpr int THREADS_F32 = 256;  // 8 warps
-constexpr int SIM_LD = BN_F32 + 4;  // float row stride of the sim tile
+constexpr int BM_F32 = 128;       // rows of f0 per block
+constexpr int TN_F32 = 128;       // rows of f1 per tile: columns of sim
+constexpr int BK_F32 = 32;        // k per ring stage
+constexpr int STAGES_F32 = 4;     // slices in the ring
+constexpr int AHEAD_F32 = 3;      // slices issued ahead of the product
+constexpr int THREADS_F32 = 256;  // 8 warps: 4 row warps x 2 column warps
+constexpr int MAX_C_F32 = 256;    // widest C: f0's resident k rows
+constexpr int LD_F32 = 128 + 4;   // floats per k of f0 in shared memory
+constexpr int LDB_F32 = BK_F32 + 4;  // floats per row of an f1 slice
+constexpr int STAGE_F32 = TN_F32 * LDB_F32;
+// the column exchange: 2 tiles in turn x (values, sums or rows) x 4 row
+// warps x 128 columns
+constexpr int RED_F32 = 2 * 2 * 4 * TN_F32;
+constexpr int BAR_F32 = MAX_C_F32 * LD_F32 + STAGES_F32 * STAGE_F32 + RED_F32;
+constexpr size_t SMEM_F32 =
+    sizeof(float) * BAR_F32 + 2 * STAGES_F32 * sizeof(uint64_t);
+static_assert(SMEM_F32 <= SMEM_MAX, "shared memory");
+static_assert(STAGES_F32 * STAGE_F32 >= 4 * BM_F32, "row merge buffer");
+static_assert(THREADS_F32 == 256 && BK_F32 == 32 && BM_F32 == 128,
+              "f0's copy map and the thread map below");
 
-// Copy rows [row0, row0 + 64) of a (n_rows, C) matrix into shared memory
-// (row stride ld, odd, so the product's column reads hit 32 banks),
-// zero-filling rows at or past n_rows.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          int row0, int n_rows, int C) {
-  for (int idx = threadIdx.x; idx < 64 * C; idx += THREADS_F32) {
-    const int r = idx / C, c = idx - r * C;
-    dst[r * ld + c] = (row0 + r < n_rows) ? src[(size_t)(row0 + r) * C + c]
-                                          : 0.f;
+// Row of the block held in register p by lane group lm of row warp wm:
+// 4 consecutive rows, then 4 more 16 rows on (two float4 of k-major f0).
+__device__ __forceinline__ int row_f32(int wm, int lm, int p) {
+  return wm * 32 + 4 * lm + (p & 3) + 16 * (p >> 2);
+}
+
+struct F32Args {
+  const float* f0;
+  const float* f1;
+  const float* m0;
+  const float* m1;
+  const float* rowterm;
+  const float* colterm;
+  float scale;      // stats: inv_t log2 e; argmax: 2 inv_t
+  int L, S, C;
+  int n_k;          // k-slices of 32: ceil(C / 32)
+  int n_blocks;     // row blocks: ceil(L / 128)
+  int chunks, span; // chunks of S, columns per chunk (whole tiles)
+  float* out_v;     // row partials (B, chunks, L)
+  float* out_w;
+  int* out_i;
+  float* part_v;    // column partials (B, n_blocks, S)
+  float* part_w;
+  int* part_i;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// One float, global to shared; zero when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+// The mbarrier counts one arrival when every cp.async this thread issued
+// before has landed (and none now).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+// The 128 threads of one column half (warps 4 wn .. 4 wn + 3).
+__device__ __forceinline__ void half_sync(int wn) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wn) : "memory");
+}
+
+// Built with -DDSMAX_TIMELINE, thread 0 of block (0, 0) sums the SM clocks
+// of each of its first 128 tiles in three parts: waiting for the ring
+// (issuing the next copies, waiting for the slice), the product, the
+// epilogue; read back by
+// dsmax_timeline_f32(). Off by default: the helpers compile to nothing.
+#ifdef DSMAX_TIMELINE
+__device__ unsigned long long g_timeline_f32[128][3];
+#endif
+__device__ __forceinline__ unsigned long long tl_clock() {
+#ifdef DSMAX_TIMELINE
+  unsigned long long clk;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(clk)::"memory");
+  return clk;
+#else
+  return 0;
+#endif
+}
+__device__ __forceinline__ void tl_add(int t, int part, unsigned long long d,
+                                       bool first) {
+#ifdef DSMAX_TIMELINE
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && t < 128)
+    g_timeline_f32[t][part] = (first ? 0ull : g_timeline_f32[t][part]) + d;
+#endif
+}
+
+template <bool ARGMAX>
+__global__ void __launch_bounds__(THREADS_F32, 1)
+dsmax_f32_kernel(const F32Args a) {
+  extern __shared__ __align__(16) float smf[];
+  float* sA = smf;
+  float* sB = sA + MAX_C_F32 * LD_F32;
+  float* red = sB + STAGES_F32 * STAGE_F32;
+  const uint32_t full0 = smem_u32(smf + BAR_F32);
+  auto full = [&](int st) { return full0 + 8u * st; };
+  auto empty = [&](int st) { return full0 + 8u * (STAGES_F32 + st); };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int lm = lane >> 3, ln = lane & 7;
+  const int blk = blockIdx.x % a.n_blocks, ch = blockIdx.x / a.n_blocks;
+  const int b = blockIdx.y;
+  const int L = a.L, S = a.S, C = a.C, n_k = a.n_k;
+  const int i0 = blk * BM_F32;
+  const int jc0 = ch * a.span, jc1 = min(jc0 + a.span, S);
+  const int n_steps = (jc1 - jc0 + TN_F32 - 1) / TN_F32 * n_k;
+  const float* f0b = a.f0 + (size_t)b * L * C;
+  const float* f1b = a.f1 + (size_t)b * S * C;
+  const float sc = a.scale;
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES_F32; ++st) {
+      mbar_init(full(st), THREADS_F32);   // every thread's copies
+      mbar_init(empty(st), THREADS_F32 / 32);   // every warp's product
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // f0's 128 rows over all of C, k-major, zero past L and C: tracked with
+  // slice 0. A thread copies one k (ck) of 16 rows (cr + 8 u) per 32 k; a
+  // warp's copy is 8 k x 4 rows, four 32-byte sectors.
+  const int ck = 8 * (warp & 3) + (lane & 7);
+  const int cr = 4 * (warp >> 2) + (lane >> 3);
+  for (int kc = 0; kc < n_k; ++kc) {
+    const int k = kc * BK_F32 + ck;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int r = cr + 8 * u;
+      const bool in = i0 + r < L && k < C;
+      cp_async4(sA + k * LD_F32 + r, in ? f0b + (size_t)(i0 + r) * C + k : f0b,
+                in);
+    }
+  }
+  // slice s of the chunk: tile s / n_k, k-slice s % n_k; columns past the
+  // chunk's end (the next chunk's or past S) and k past C read as zeros
+  auto load_f1 = [&](int s) {
+    const int t = s / n_k, kc = s - t * n_k;
+    float* dst = sB + (s % STAGES_F32) * STAGE_F32;
+#pragma unroll
+    for (int u = 0; u < TN_F32 * BK_F32 / 4 / THREADS_F32; ++u) {
+      const int idx = tid + THREADS_F32 * u;
+      const int r = idx / (BK_F32 / 4), k4 = 4 * (idx % (BK_F32 / 4));
+      const int j = jc0 + t * TN_F32 + r, k = kc * BK_F32 + k4;
+      const bool in = j < jc1 && k < C;
+      cp_async16(dst + r * LDB_F32 + k4, in ? f1b + (size_t)j * C + k : f1b,
+                 in);
+    }
+    cp_async_arrive(full(s % STAGES_F32));
+  };
+#pragma unroll
+  for (int s = 0; s < AHEAD_F32; ++s)
+    if (s < n_steps) load_f1(s);
+
+  // column side of my 8 rows: a masked row or a row past L is NEG (as the
+  // plain version's padded row blocks); stats add 0, argmax -rowterm_i
+  float cb[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int i = i0 + row_f32(wm, lm, p);
+    const bool valid = i < L && a.m0[(size_t)b * L + i] > 0.f;
+    cb[p] = !valid ? NEG : ARGMAX ? -a.rowterm[(size_t)b * L + i] : 0.f;
+  }
+  // row state of my 8 rows over the chunk. Argmax: best value and its
+  // column (the chunk's first column while nothing beat NEG, as the plain
+  // version's first index). Stats: running max and sum, log2 domain.
+  float rv[8], rw[8];
+  int ri[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    rv[p] = NEG;
+    rw[p] = 0.f;
+    ri[p] = jc0;
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+
+  const float* m1b = a.m1 + (size_t)b * S;
+  const float* ctb = ARGMAX ? a.colterm + (size_t)b * S : nullptr;
+  const float* A0 = sA + wm * 32 + 4 * lm;
+  const int boff = (wn * 64 + ln) * LDB_F32;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const unsigned long long c0 = tl_clock();
+    // slice s + 3 goes to the stage that slice s - 1 took, once every warp
+    // is done with it (phase (s - 1) / 4 of its empty barrier)
+    const int s2 = s + AHEAD_F32;
+    if (s2 < n_steps) {
+      if (s2 >= STAGES_F32)
+        mbar_wait(empty(s2 % STAGES_F32), ((s2 / STAGES_F32) - 1) & 1);
+      load_f1(s2);
+    }
+    // slice s (and, with slice 0, f0) landed from every thread's copies
+    mbar_wait(full(s % STAGES_F32), (s / STAGES_F32) & 1);
+    const int t = s / n_k, kc = s - t * n_k;
+    const bool last = kc == n_k - 1;
+    const int jq = jc0 + t * TN_F32 + wn * 64 + ln;   // my column, q = 0
+    // the row side's mask and term of my 8 columns, loaded before the
+    // tile's last product so that their latency hides behind it; columns
+    // past the chunk take no part (-inf), masked ones are NEG
+    float rb[8];
+    if (last) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int jo = jq + 8 * q, j = min(jo, S - 1);
+        const float mk = __ldg(m1b + j);
+        const float ct = ARGMAX ? __ldg(ctb + j) : 0.f;
+        rb[q] = jo >= jc1 ? -INFINITY : mk <= 0.f ? NEG : -ct;
+      }
+    }
+    const unsigned long long c1 = tl_clock();
+
+    const float* As = A0 + kc * BK_F32 * LD_F32;
+    const float* Bs = sB + (s % STAGES_F32) * STAGE_F32 + boff;
+#pragma unroll
+    for (int k4 = 0; k4 < BK_F32; k4 += 4) {
+      float4 bv[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        bv[q] = *reinterpret_cast<const float4*>(Bs + 8 * q * LDB_F32 + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* Ak = As + (k4 + kk) * LD_F32;
+        const float4 a0 = *reinterpret_cast<const float4*>(Ak);
+        const float4 a1 = *reinterpret_cast<const float4*>(Ak + 16);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float bq = kk == 0 ? bv[q].x : kk == 1 ? bv[q].y
+                         : kk == 2 ? bv[q].z : bv[q].w;
+#pragma unroll
+          for (int p = 0; p < 8; ++p) acc[p][q] = fmaf(av[p], bq, acc[p][q]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s % STAGES_F32));
+    const unsigned long long c2 = tl_clock();
+
+    if (last) {
+      // row side: columns rise with q and with t, so a strict > keeps the
+      // first column
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        if (ARGMAX) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float v = fmaf(acc[p][q], sc, rb[q]);
+            ri[p] = v > rv[p] ? jq + 8 * q : ri[p];
+            rv[p] = fmaxf(rv[p], v);
+          }
+        } else {
+          float v[8];
+          float m = -INFINITY;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            v[q] = fmaf(acc[p][q], sc, rb[q]);
+            m = fmaxf(m, v[q]);
+          }
+          const float mn = fmaxf(rv[p], m);
+          float sum = 0.f;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) sum += fast_exp2(v[q] - mn);
+          rw[p] = rw[p] * fast_exp2(rv[p] - mn) + sum;
+          rv[p] = mn;
+        }
+      }
+      // column side: over my 8 rows (rising with p), the 4 lanes of the
+      // column (lm, shuffles), then the 4 row warps of my column half
+      // (shared memory; the next write to this tile parity's buffer comes
+      // after the next tile's barrier of the same warps)
+      float* xv = red + (t & 1) * (2 * 4 * TN_F32);   // [4][TN] values
+      float* xw = xv + 4 * TN_F32;                    // [4][TN] sums / rows
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float x[8];
+#pragma unroll
+        for (int p = 0; p < 8; ++p) x[p] = fmaf(acc[p][q], sc, cb[p]);
+        float best = x[0];
+        int bp = 0;
+#pragma unroll
+        for (int p = 1; p < 8; ++p) {
+          if (ARGMAX) bp = x[p] > best ? p : bp;
+          best = fmaxf(best, x[p]);
+        }
+        int row = row_f32(wm, lm, bp);
+#pragma unroll
+        for (int off = 8; off < 32; off <<= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+          if (ARGMAX) {
+            const int orow = __shfl_xor_sync(0xffffffffu, row, off);
+            const bool take = ob > best || (ob == best && orow < row);
+            best = take ? ob : best;
+            row = take ? orow : row;
+          } else {
+            best = fmaxf(best, ob);
+          }
+        }
+        float sum = 0.f;
+        if (!ARGMAX) {
+#pragma unroll
+          for (int p = 0; p < 8; ++p) sum += fast_exp2(x[p] - best);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+        }
+        if (lm == 0) {
+          const int c = wm * TN_F32 + wn * 64 + ln + 8 * q;
+          xv[c] = best;
+          xw[c] = ARGMAX ? __int_as_float(row) : sum;
+        }
+      }
+      half_sync(wn);
+      const int col = wn * 64 + (tid & 127);
+      const int j = jc0 + t * TN_F32 + col;
+      if ((tid & 127) < 64 && j < jc1) {
+        // row warps in order: lower warps hold lower rows, so a strict >
+        // keeps the first row
+        float v = xv[col], w = xw[col];
+#pragma unroll
+        for (int q = 1; q < 4; ++q) {
+          const float ov = xv[q * TN_F32 + col], ow = xw[q * TN_F32 + col];
+          if (ARGMAX) {
+            w = ov > v ? ow : w;
+            v = fmaxf(v, ov);
+          } else {
+            const float m = fmaxf(v, ov);
+            w = w * fast_exp2(v - m) + ow * fast_exp2(ov - m);
+            v = m;
+          }
+        }
+        const size_t o = ((size_t)b * a.n_blocks + blk) * S + j;
+        if (ARGMAX) {
+          a.part_v[o] = v;
+          a.part_i[o] = i0 + __float_as_int(w);
+        } else {
+          a.part_v[o] = to_natural(v);
+          a.part_w[o] = w;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+    }
+    const unsigned long long c3 = tl_clock();
+    tl_add(t, 0, c1 - c0, kc == 0);
+    tl_add(t, 1, c2 - c1, kc == 0);
+    tl_add(t, 2, c3 - c2, kc == 0);
+  }
+
+  // merge the row states: the 8 lanes of a row (ln), then the two column
+  // warps through shared memory (the ring, once every copy has landed and
+  // every product is done). Lanes and warps interleave columns, so ties
+  // compare the columns.
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, rv[p], off);
+      if (ARGMAX) {
+        const int oi = __shfl_xor_sync(0xffffffffu, ri[p], off);
+        const bool take = ov > rv[p] || (ov == rv[p] && oi < ri[p]);
+        rv[p] = take ? ov : rv[p];
+        ri[p] = take ? oi : ri[p];
+      } else {
+        const float ow = __shfl_xor_sync(0xffffffffu, rw[p], off);
+        const float m = fmaxf(rv[p], ov);
+        rw[p] = rw[p] * fast_exp2(rv[p] - m) + ow * fast_exp2(ov - m);
+        rv[p] = m;
+      }
+    }
+  }
+  __syncthreads();                 // every slice landed and was read
+  float* mv = sB;                  // [2][BM] values
+  float* mw = sB + 2 * BM_F32;     // [2][BM] sums / columns
+  if (ln == 0) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int r = wn * BM_F32 + row_f32(wm, lm, p);
+      mv[r] = rv[p];
+      mw[r] = ARGMAX ? __int_as_float(ri[p]) : rw[p];
+    }
+  }
+  __syncthreads();
+  if (tid < BM_F32 && i0 + tid < L) {
+    float v = mv[tid], w = mw[tid];
+    const float ov = mv[BM_F32 + tid], ow = mw[BM_F32 + tid];
+    const size_t o = ((size_t)b * a.chunks + ch) * L + i0 + tid;
+    if (ARGMAX) {
+      const int ix = __float_as_int(w), oi = __float_as_int(ow);
+      const bool take = ov > v || (ov == v && oi < ix);
+      a.out_v[o] = take ? ov : v;
+      a.out_i[o] = take ? oi : ix;
+    } else {
+      const float m = fmaxf(v, ov);
+      a.out_v[o] = to_natural(m);
+      a.out_w[o] = w * fast_exp2(v - m) + ow * fast_exp2(ov - m);
+    }
   }
 }
 
-// sim[r][c] = sum_k a[r][k] * b[c][k] for the 64 x 64 tile (unscaled).
-__device__ __forceinline__ void sim_tile(const float* a, const float* b,
-                                         float* sim, int ld, int C) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < C; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * ld + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * ld + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sim[(ty + 16 * i) * SIM_LD + tx + 16 * j] = acc[i][j];
-}
-
-size_t smem_bytes_f32(int C) {
-  return (size_t)(BM_F32 + BN_F32) * (C + 1) * sizeof(float)
-         + (size_t)BM_F32 * SIM_LD * sizeof(float);
-}
-
-// Thread roles in the reductions over a 64 x 64 sim tile:
-//   row side:    row rr = tid / 4 owns columns rq + 4k (k < 16);
-//   column side: column cc = tid % 64 owns rows cq + 4k (k < 16).
-// Both patterns read 32 distinct banks per warp.
-
-__global__ void __launch_bounds__(THREADS_F32)
-dsmax_stats_f32(const float* __restrict__ f0, const float* __restrict__ f1,
-                const float* __restrict__ m0, const float* __restrict__ m1,
-                float inv_t, int L, int S, int C, int n_row_tiles,
-                float* __restrict__ rmax, float* __restrict__ rsum,
-                float* __restrict__ cpmax, float* __restrict__ cpsum) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float sm0[BM_F32], sm1[BN_F32];
-  __shared__ float red_m[4][BN_F32], red_s[4][BN_F32];
-
-  const int ld = C + 1;
-  float* sa = reinterpret_cast<float*>(smem_raw);
-  float* sb = sa + BM_F32 * ld;
-  float* sim = sb + BN_F32 * ld;
-
-  const int tid = threadIdx.x;
-  const int ti = blockIdx.x, b = blockIdx.y;
-  const int i0 = ti * BM_F32;
-  const float* f0b = f0 + (size_t)b * L * C;
-  const float* f1b = f1 + (size_t)b * S * C;
-  const float* m0b = m0 + (size_t)b * L;
-  const float* m1b = m1 + (size_t)b * S;
-
-  const int rr = tid >> 2, rq = tid & 3;
-  const int cc = tid & 63, cq = tid >> 6;
-
-  load_tile(sa, ld, f0b, i0, L, C);
-  if (tid < BM_F32) sm0[tid] = (i0 + tid < L) ? m0b[i0 + tid] : 0.f;
-
-  float run_m = NEG, run_s = 0.f;     // online row stats, this thread's part
-  for (int j0 = 0; j0 < S; j0 += BN_F32) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(sb, ld, f1b, j0, S, C);
-    if (tid < BN_F32) sm1[tid] = (j0 + tid < S) ? m1b[j0 + tid] : 0.f;
-    __syncthreads();
-    sim_tile(sa, sb, sim, ld, C);
-    __syncthreads();
-
-    // row side: mask columns
-    {
-      float v[16];
-      float tmax = NEG;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int c = rq + 4 * k;
-        const float s = sim[rr * SIM_LD + c] * inv_t;
-        v[k] = sm1[c] > 0.f ? s : NEG;
-        tmax = fmaxf(tmax, v[k]);
-      }
-      const float m_new = fmaxf(run_m, tmax);
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) acc += expf(v[k] - m_new);
-      run_s = run_s * expf(run_m - m_new) + acc;
-      run_m = m_new;
-    }
-    // column side: mask rows, this thread's 16 rows
-    {
-      float v[16];
-      float tmax = NEG;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int r = cq + 4 * k;
-        const float s = sim[r * SIM_LD + cc] * inv_t;
-        v[k] = sm0[r] > 0.f ? s : NEG;
-        tmax = fmaxf(tmax, v[k]);
-      }
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) acc += expf(v[k] - tmax);
-      red_m[cq][cc] = tmax;
-      red_s[cq][cc] = acc;
-    }
-    __syncthreads();
-    if (tid < BN_F32 && j0 + tid < S) {
-      float M = red_m[0][tid];
-#pragma unroll
-      for (int q = 1; q < 4; ++q) M = fmaxf(M, red_m[q][tid]);
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sum += red_s[q][tid] * expf(red_m[q][tid] - M);
-      const size_t o = ((size_t)b * n_row_tiles + ti) * S + j0 + tid;
-      cpmax[o] = M;
-      cpsum[o] = sum;
-    }
-  }
-
-  // merge the four parts of each row (adjacent lanes)
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, run_m, off);
-    const float os = __shfl_xor_sync(0xffffffffu, run_s, off);
-    const float M = fmaxf(run_m, om);
-    run_s = run_s * expf(run_m - M) + os * expf(om - M);
-    run_m = M;
-  }
-  if (rq == 0 && i0 + rr < L) {
-    rmax[(size_t)b * L + i0 + rr] = run_m;
-    rsum[(size_t)b * L + i0 + rr] = run_s;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS_F32)
-dsmax_argmax_f32(const float* __restrict__ f0, const float* __restrict__ f1,
-                 const float* __restrict__ m0, const float* __restrict__ m1,
-                 const float* __restrict__ colterm,
-                 const float* __restrict__ rowterm,
-                 float inv_t, int L, int S, int C, int n_row_tiles,
-                 int* __restrict__ jbest, float* __restrict__ jval,
-                 int* __restrict__ ipidx, float* __restrict__ ipval) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float sm0[BM_F32], srow[BM_F32], sm1[BN_F32], scol[BN_F32];
-  __shared__ float red_v[4][BN_F32];
-  __shared__ int red_i[4][BN_F32];
-
-  const int ld = C + 1;
-  float* sa = reinterpret_cast<float*>(smem_raw);
-  float* sb = sa + BM_F32 * ld;
-  float* sim = sb + BN_F32 * ld;
-
-  const int tid = threadIdx.x;
-  const int ti = blockIdx.x, b = blockIdx.y;
-  const int i0 = ti * BM_F32;
-  const float* f0b = f0 + (size_t)b * L * C;
-  const float* f1b = f1 + (size_t)b * S * C;
-  const float* m0b = m0 + (size_t)b * L;
-  const float* m1b = m1 + (size_t)b * S;
-  const float* colb = colterm + (size_t)b * S;
-  const float* rowb = rowterm + (size_t)b * L;
-
-  const int rr = tid >> 2, rq = tid & 3;
-  const int cc = tid & 63, cq = tid >> 6;
-
-  load_tile(sa, ld, f0b, i0, L, C);
-  if (tid < BM_F32) {
-    const bool in = i0 + tid < L;
-    sm0[tid] = in ? m0b[i0 + tid] : 0.f;
-    srow[tid] = in ? rowb[i0 + tid] : 0.f;
-  }
-
-  float best_v = NEG;   // row side, this thread's columns
-  int best_j = 0;
-  for (int j0 = 0; j0 < S; j0 += BN_F32) {
-    __syncthreads();
-    load_tile(sb, ld, f1b, j0, S, C);
-    if (tid < BN_F32) {
-      const bool in = j0 + tid < S;
-      sm1[tid] = in ? m1b[j0 + tid] : 0.f;
-      scol[tid] = in ? colb[j0 + tid] : 0.f;
-    }
-    __syncthreads();
-    sim_tile(sa, sb, sim, ld, C);
-    __syncthreads();
-
-    // row side: argmax_j of 2 sim - colterm_j; columns rise with k and
-    // with j0, so the strict > keeps the first index
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int c = rq + 4 * k;
-      const float s = sim[rr * SIM_LD + c] * inv_t;
-      const float v = sm1[c] > 0.f ? 2.f * s - scol[c] : NEG;
-      if (v > best_v) { best_v = v; best_j = j0 + c; }
-    }
-    // column side: argmax_i of 2 sim - rowterm_i over this thread's rows
-    {
-      float bv = NEG;
-      int bi = i0 + cq;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int r = cq + 4 * k;
-        const float s = sim[r * SIM_LD + cc] * inv_t;
-        const float v = sm0[r] > 0.f ? 2.f * s - srow[r] : NEG;
-        if (v > bv) { bv = v; bi = i0 + r; }
-      }
-      red_v[cq][cc] = bv;
-      red_i[cq][cc] = bi;
-    }
-    __syncthreads();
-    if (tid < BN_F32 && j0 + tid < S) {
-      float v = red_v[0][tid];
-      int i = red_i[0][tid];
-#pragma unroll
-      for (int q = 1; q < 4; ++q) {
-        const float ov = red_v[q][tid];
-        const int oi = red_i[q][tid];
-        if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-      }
-      const size_t o = ((size_t)b * n_row_tiles + ti) * S + j0 + tid;
-      ipval[o] = v;
-      ipidx[o] = i;
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
-    const int oj = __shfl_xor_sync(0xffffffffu, best_j, off);
-    if (ov > best_v || (ov == best_v && oj < best_j)) {
-      best_v = ov;
-      best_j = oj;
-    }
-  }
-  if (rq == 0 && i0 + rr < L) {
-    jbest[(size_t)b * L + i0 + rr] = best_j;
-    jval[(size_t)b * L + i0 + rr] = best_v;
-  }
+template <bool ARGMAX>
+int launch_f32(const F32Args& a, int B, cudaStream_t stream) {
+  cudaError_t err = prepare(dsmax_f32_kernel<ARGMAX>, SMEM_F32);
+  if (err != cudaSuccess) return (int)err;
+  dsmax_f32_kernel<ARGMAX>
+      <<<dim3(a.n_blocks * a.chunks, B), THREADS_F32, SMEM_F32, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 int block_rows(int dtype) { return dtype == 0 ? BM : BM_F32; }
 
-bool bad_shape(int dtype, int B, int L, int S, int C) {
-  return dtype < 0 || dtype > 1 || B < 1 || B > 65535 || L < 1 || S < 1
-         || C < 8 || C > 256 || C % 8 != 0;
+// Columns per chunk: whole 128-column tiles, as even as they come.
+int chunk_span(int S, int chunks) {
+  const int tiles = (S + TN_F32 - 1) / TN_F32;
+  return TN_F32 * ((tiles + chunks - 1) / chunks);
+}
+
+bool bad_shape(int dtype, int B, int L, int S, int C, int chunks) {
+  if (dtype < 0 || dtype > 1 || B < 1 || B > 65535 || L < 1 || S < 1
+      || C < 8 || C > 256 || C % 8 != 0 || chunks < 1)
+    return true;
+  if (dtype == 0) return chunks != 1;   // the bf16 kernel sweeps all of S
+  const int span = chunk_span(S, chunks);
+  const long long blocks = (long long)((L + BM_F32 - 1) / BM_F32) * chunks;
+  return (S + span - 1) / span != chunks || blocks > 0x7fffffff;
 }
 
 }  // namespace
@@ -811,24 +1045,34 @@ bool bad_shape(int dtype, int B, int L, int S, int C) {
 // Plain C interface, loaded with ctypes. dtype: 0 = bf16, 1 = float32.
 // Every array is contiguous: f0 (B, L, C), f1 (B, S, C), m0 (B, L),
 // m1 (B, S) float32 (> 0 = valid); C a multiple of 8 up to 256. bf16
-// features are read by TMA: their bases must be 16-byte aligned (the
-// wrapper checks). Column partials are (B, ceil(L / dsmax_block_rows(
-// dtype)), S). Returns cudaGetLastError() after the launch (0 =
-// launched); what it does not take returns cudaErrorInvalidValue without
-// launching.
+// features are read by TMA, float32 ones by cp.async: the feature bases
+// must be 16-byte aligned (the wrapper checks). S is swept in `chunks`
+// chunks of dsmax_chunk_span(S, chunks) columns (float32; bf16 takes 1,
+// and no chunk may be empty): row outputs are partials (B, chunks, L),
+// column partials (B, ceil(L / dsmax_block_rows(dtype)), S). Returns
+// cudaGetLastError() after the launch (0 = launched); what it does not
+// take returns cudaErrorInvalidValue without launching.
 
 extern "C" int dsmax_block_rows(int dtype) { return block_rows(dtype); }
+extern "C" int dsmax_chunk_span(int S, int chunks) {
+  return chunk_span(S, chunks);
+}
 #ifdef DSMAX_TIMELINE
 extern "C" int dsmax_timeline(void* host) {
   return (int)cudaMemcpyFromSymbol(host, g_timeline, sizeof(g_timeline));
+}
+extern "C" int dsmax_timeline_f32(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_timeline_f32,
+                                   sizeof(g_timeline_f32));
 }
 #endif
 
 extern "C" int dsmax_stats(int dtype, const void* f0, const void* f1,
                            const void* m0, const void* m1, float inv_t,
-                           int B, int L, int S, int C, void* rmax, void* rsum,
-                           void* cpmax, void* cpsum, void* stream) {
-  if (bad_shape(dtype, B, L, S, C)) return (int)cudaErrorInvalidValue;
+                           int B, int L, int S, int C, int chunks, void* rmax,
+                           void* rsum, void* cpmax, void* cpsum,
+                           void* stream) {
+  if (bad_shape(dtype, B, L, S, C, chunks)) return (int)cudaErrorInvalidValue;
   const int n_blocks = (L + block_rows(dtype) - 1) / block_rows(dtype);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -837,23 +1081,21 @@ extern "C" int dsmax_stats(int dtype, const void* f0, const void* f1,
            nullptr, (float*)cpmax, (float*)cpsum, nullptr};
     return dispatch_bf16<false>(f0, f1, B, C, a, st);
   }
-  const size_t smem = smem_bytes_f32(C);
-  cudaError_t err = prepare(dsmax_stats_f32, smem);
-  if (err != cudaSuccess) return (int)err;
-  dsmax_stats_f32<<<dim3(n_blocks, B), THREADS_F32, smem, st>>>(
-      (const float*)f0, (const float*)f1, (const float*)m0, (const float*)m1,
-      inv_t, L, S, C, n_blocks, (float*)rmax, (float*)rsum, (float*)cpmax,
-      (float*)cpsum);
-  return (int)cudaGetLastError();
+  F32Args a{(const float*)f0, (const float*)f1, (const float*)m0,
+            (const float*)m1, nullptr, nullptr, inv_t * LOG2E, L, S, C,
+            (C + BK_F32 - 1) / BK_F32, n_blocks, chunks,
+            chunk_span(S, chunks), (float*)rmax, (float*)rsum, nullptr,
+            (float*)cpmax, (float*)cpsum, nullptr};
+  return launch_f32<false>(a, B, st);
 }
 
 extern "C" int dsmax_argmax(int dtype, const void* f0, const void* f1,
                             const void* m0, const void* m1,
                             const void* colterm, const void* rowterm,
                             float inv_t, int B, int L, int S, int C,
-                            void* jbest, void* jval, void* ipidx, void* ipval,
-                            void* stream) {
-  if (bad_shape(dtype, B, L, S, C)) return (int)cudaErrorInvalidValue;
+                            int chunks, void* jbest, void* jval, void* ipidx,
+                            void* ipval, void* stream) {
+  if (bad_shape(dtype, B, L, S, C, chunks)) return (int)cudaErrorInvalidValue;
   const int n_blocks = (L + block_rows(dtype) - 1) / block_rows(dtype);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -862,12 +1104,10 @@ extern "C" int dsmax_argmax(int dtype, const void* f0, const void* f1,
            nullptr, (int*)jbest, (float*)ipval, nullptr, (int*)ipidx};
     return dispatch_bf16<true>(f0, f1, B, C, a, st);
   }
-  const size_t smem = smem_bytes_f32(C);
-  cudaError_t err = prepare(dsmax_argmax_f32, smem);
-  if (err != cudaSuccess) return (int)err;
-  dsmax_argmax_f32<<<dim3(n_blocks, B), THREADS_F32, smem, st>>>(
-      (const float*)f0, (const float*)f1, (const float*)m0, (const float*)m1,
-      (const float*)colterm, (const float*)rowterm, inv_t, L, S, C, n_blocks,
-      (int*)jbest, (float*)jval, (int*)ipidx, (float*)ipval);
-  return (int)cudaGetLastError();
+  F32Args a{(const float*)f0, (const float*)f1, (const float*)m0,
+            (const float*)m1, (const float*)rowterm, (const float*)colterm,
+            2.f * inv_t, L, S, C, (C + BK_F32 - 1) / BK_F32, n_blocks,
+            chunks, chunk_span(S, chunks), (float*)jval, nullptr,
+            (int*)jbest, (float*)ipval, nullptr, (int*)ipidx};
+  return launch_f32<true>(a, B, st);
 }

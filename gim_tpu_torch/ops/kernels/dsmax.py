@@ -15,16 +15,21 @@ sweeps over sim tiles, each launched once for the whole batch:
 - `dsmax_argmax`: the log-domain argmax on both sides, rows resident and
   columns as per-row-block partials (the TPU's `_argmax_kernel`).
 
-The bf16 kernel takes blocks of 128 rows (TMA + wgmma), the float32 one
-blocks of 64; the plain versions take the same `block`, so every path
-leaves its own partial layout. `dual_softmax_mutual` reduces the partials
-with torch ops between and after the sweeps, as the JAX package leaves
-them to XLA (`dsmax.py:226-258`). Each wrapper takes its plain PyTorch
-version only for CPU tensors; for a CUDA tensor it launches its kernel or
+Both kernels take blocks of 128 rows of f0: the bf16 one (TMA + wgmma)
+sweeps all of S in each block; the float32 one (SIMT FMA) cuts S into
+`chunks` runs of whole 128-column tiles (`sweep_chunks` picks the count
+that fills the card), so that its row outputs are partials (B, chunks,
+L). `stats_sweep` / `argmax_sweep` return that partial layout, from the
+kernel or, for CPU tensors, from the plain version given the same
+`chunks`; `dsmax_stats` / `dsmax_argmax` merge the row partials (log-
+sum-exp; the first chunk holding the maximum) and keep their (B, L)
+rows. `dual_softmax_mutual` reduces the column partials with torch ops
+between and after the sweeps, as the JAX package leaves them to XLA
+(`dsmax.py:226-258`). For a CUDA tensor a wrapper launches its kernel or
 raises (`kernel_args` says what the kernel takes). `LAUNCHES` counts the
 launches of each of the four kernels: the bf16 sweeps under their names,
-the float32 ones (`dsmax_stats_f32`, `dsmax_argmax_f32` in the source)
-under theirs.
+the float32 ones (`dsmax_f32_kernel<false / true>` in the source) as
+`dsmax_stats_f32` and `dsmax_argmax_f32`.
 
 `dual_softmax_mutual_plain` is the dense recipe (conf materialised one
 pair at a time), an independent reference for tests and the card check.
@@ -41,7 +46,10 @@ from gim_tpu_torch.ops.kernels.build import load_library
 
 NEG = -1e30
 # rows of f0 per block, by feature dtype; must match dsmax_block_rows()
-BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+BLOCK_ROWS = {torch.bfloat16: 128, torch.float32: 128}
+CHUNK_TILE = 128      # float32 kernel: columns per tile, a chunk's unit
+MAX_CHUNKS = 8
+H100_SMS = 132        # the chunk rule's card for tensors off CUDA
 MAX_C = 256           # widest feature the kernels' shared memory holds
 C_STEP = 8            # C must be a multiple: TMA's 16-byte row stride
 ALIGN = 16            # bytes: TMA's rule for the feature bases
@@ -60,16 +68,22 @@ def _lib():
     if not getattr(lib, "_gim_typed", False):
         lib.dsmax_block_rows.argtypes = [_I]
         lib.dsmax_block_rows.restype = _I
+        lib.dsmax_chunk_span.argtypes = [_I, _I]
+        lib.dsmax_chunk_span.restype = _I
         lib.dsmax_stats.argtypes = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                                    _P, _P, _P, _P, _P]
+                                    _I, _P, _P, _P, _P, _P]
         lib.dsmax_stats.restype = _I
         lib.dsmax_argmax.argtypes = [_I, _P, _P, _P, _P, _P, _P, _F, _I, _I,
-                                     _I, _I, _P, _P, _P, _P, _P]
+                                     _I, _I, _I, _P, _P, _P, _P, _P]
         lib.dsmax_argmax.restype = _I
         for dtype, code in _DTYPE_CODE.items():
             if lib.dsmax_block_rows(code) != BLOCK_ROWS[dtype]:
                 raise RuntimeError(f"csrc/dsmax.cu block rows for {dtype} "
                                    f"differ from BLOCK_ROWS")
+        for S, n in ((11025, 3), (129, 2), (300, 1)):
+            if lib.dsmax_chunk_span(S, n) != chunk_span(S, n):
+                raise RuntimeError("csrc/dsmax.cu chunk spans differ from "
+                                   "chunk_span")
         lib._gim_typed = True
     return lib
 
@@ -84,24 +98,79 @@ def block_rows(dtype: torch.dtype) -> int:
     return BLOCK_ROWS.get(dtype, BLOCK_ROWS[torch.float32])
 
 
+def chunk_span(S: int, chunks: int) -> int:
+    """Columns per chunk of S: whole CHUNK_TILE-column tiles, as even as
+    they come (the last chunk takes the rest); dsmax_chunk_span() in the
+    source."""
+    return CHUNK_TILE * _cdiv(_cdiv(S, CHUNK_TILE), chunks)
+
+
+def sweep_chunks(dtype: torch.dtype, B: int, L: int, S: int,
+                 sms: int = H100_SMS) -> int:
+    """Chunks of S for a sweep over (B, L) x (B, S): 1 for bf16 (its
+    kernel sweeps all of S); for float32 the count, up to MAX_CHUNKS, that
+    gives the (row block, chunk, pair) blocks, one resident on each of
+    `sms` SMs, the fewest waves times tiles per block (plus one tile's
+    worth for a block's f0 load and row merge), no chunk empty. ZEB's
+    (1, 11025, 11025) on 132 SMs: 3 (261 blocks of 29 tiles)."""
+    if dtype != torch.float32:
+        return 1
+    n_rb, n_ct = _cdiv(L, BLOCK_ROWS[dtype]), _cdiv(S, CHUNK_TILE)
+    best, best_cost = 1, None
+    for n in range(1, min(n_ct, MAX_CHUNKS) + 1):
+        tiles = _cdiv(n_ct, n)
+        n = _cdiv(n_ct, tiles)
+        cost = _cdiv(B * n_rb * n, sms) * (tiles + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = n, cost
+    return best
+
+
+def _sms(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+def _chunks(S: int, chunks: int) -> list[tuple[int, int]]:
+    """(first, end) columns of each chunk of S; raises if there is none or
+    one is empty."""
+    if chunks < 1 or _cdiv(S, chunk_span(S, chunks)) != chunks:
+        raise ValueError(f"{chunks} chunks of S = {S}: none, or one empty")
+    span = chunk_span(S, chunks)
+    return [(c * span, min(S, (c + 1) * span)) for c in range(chunks)]
+
+
+def _chunk_count(f0, f1, chunks: int | None) -> int:
+    if chunks is not None:
+        return chunks
+    return sweep_chunks(f0.dtype, f0.shape[0], f0.shape[1], f1.shape[1],
+                        _sms(f0.device))
+
+
 class KernelArgs(NamedTuple):
     B: int
     L: int
     S: int
     C: int
     block: int                # rows of f0 per block
-    grid: tuple[int, int]     # (row blocks, pairs)
+    grid: tuple[int, int]     # (row blocks x chunks, pairs)
     cluster: int              # blocks per cluster
+    chunks: int               # chunks of S (row partials)
 
 
-def kernel_args(f0, f1, m0, m1, *terms) -> KernelArgs:
+def kernel_args(f0, f1, m0, m1, *terms, chunks: int | None = None
+                ) -> KernelArgs:
     """What the kernel is handed for f0 (B, L, C), f1 (B, S, C), masks
     m0 (B, L) and m1 (B, S) and, for the argmax sweep, the terms colterm
-    (B, S) and rowterm (B, L). Raises on what the kernel does not take:
-    a dtype other than bf16 / float32, another rank or shape, C not a
-    multiple of 8 or above 256, masks or terms that are not float32 on the
-    features' device, a non-contiguous tensor, a feature base that is not
-    16-byte aligned. Nothing is copied or padded in place of a raise."""
+    (B, S) and rowterm (B, L), with S in `chunks` chunks (default
+    `sweep_chunks` for the features' device). Raises on what the kernel
+    does not take: a dtype other than bf16 / float32, another rank or
+    shape, C not a multiple of 8 or above 256, masks or terms that are not
+    float32 on the features' device, a non-contiguous tensor, a feature
+    base that is not 16-byte aligned, a chunk count other than 1 for bf16
+    or one that leaves a chunk empty. Nothing is copied or padded in place
+    of a raise."""
     if f0.dtype not in BLOCK_ROWS or f1.dtype != f0.dtype:
         raise TypeError(f"dsmax takes bf16 or float32 features, got "
                         f"{f0.dtype} and {f1.dtype}")
@@ -134,7 +203,13 @@ def kernel_args(f0, f1, m0, m1, *terms) -> KernelArgs:
         if t.data_ptr() % ALIGN:
             raise ValueError(f"feature base is not {ALIGN}-byte aligned")
     block = BLOCK_ROWS[f0.dtype]
-    return KernelArgs(B, L, S, C, block, (_cdiv(L, block), B), 1)
+    chunks = _chunk_count(f0, f1, chunks)
+    if f0.dtype == torch.bfloat16 and chunks != 1:
+        raise ValueError(f"{chunks} chunks for bf16 features: its kernel "
+                         f"sweeps all of S")
+    _chunks(S, chunks)
+    return KernelArgs(B, L, S, C, block, (_cdiv(L, block) * chunks, B), 1,
+                      chunks)
 
 
 def _on_cuda(f0):
@@ -148,7 +223,7 @@ def _counted(sweep: str, dtype: torch.dtype) -> str:
 
 
 # ---------------------------------------------------------------------------
-# plain versions (same outputs, same row tiling)
+# plain versions (same outputs, same row tiling, same chunks)
 # ---------------------------------------------------------------------------
 
 def _sim(f0b: torch.Tensor, f1b: torch.Tensor, inv_t: float) -> torch.Tensor:
@@ -163,23 +238,28 @@ def _row_tiles(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.cat([x, pad]).view(n, block, S)
 
 
-def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int | None = None):
-    """Plain version of the stats sweep: (rmax, rsum) (B, L) and column
-    partials (cpmax, cpsum) (B, L/block, S), float32. `block` defaults to
-    the kernel's for f0's dtype."""
+def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int | None = None,
+                      chunks: int = 1):
+    """Plain version of the stats sweep: row partials (rmax, rsum) (B,
+    chunks, L) over each chunk's columns, and column partials (cpmax,
+    cpsum) (B, L/block, S), float32. `block` defaults to the kernel's for
+    f0's dtype."""
     B, L, _ = f0.shape
     block = block or block_rows(f0.dtype)
     S = f1.shape[1]
     n = _cdiv(L, block)
-    rmax = f0.new_empty((B, L), dtype=torch.float32)
+    spans = _chunks(S, chunks)
+    rmax = f0.new_empty((B, chunks, L), dtype=torch.float32)
     rsum = torch.empty_like(rmax)
     cpmax = f0.new_empty((B, n, S), dtype=torch.float32)
     cpsum = torch.empty_like(cpmax)
     for b in range(B):                 # one (L, S) matrix alive at a time
         sim = _sim(f0[b], f1[b], inv_t)
         sim_r = sim.masked_fill((m1[b] <= 0)[None, :], NEG)
-        rmax[b] = sim_r.amax(1)
-        rsum[b] = torch.exp(sim_r - rmax[b][:, None]).sum(1)
+        for c, (lo, hi) in enumerate(spans):
+            rmax[b, c] = sim_r[:, lo:hi].amax(1)
+            rsum[b, c] = torch.exp(sim_r[:, lo:hi] - rmax[b, c][:, None]
+                                   ).sum(1)
         sim_c = _row_tiles(sim.masked_fill((m0[b] <= 0)[:, None], NEG), block)
         cpmax[b] = sim_c.amax(1)
         cpsum[b] = torch.exp(sim_c - cpmax[b][:, None]).sum(1)
@@ -187,17 +267,19 @@ def dsmax_stats_plain(f0, f1, m0, m1, inv_t: float, block: int | None = None):
 
 
 def dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
-                       block: int | None = None):
-    """Plain version of the argmax sweep: (jbest int32, jval) (B, L) and
-    column partials (ipidx int32, ipval) (B, L/block, S). Ties go to the
-    first index (torch.max returns the first maximal index). `block`
-    defaults to the kernel's for f0's dtype."""
+                       block: int | None = None, chunks: int = 1):
+    """Plain version of the argmax sweep: row partials (jbest int32, jval)
+    (B, chunks, L), each chunk's best column and its value, and column
+    partials (ipidx int32, ipval) (B, L/block, S). Ties go to the first
+    index (torch.max returns the first maximal index). `block` defaults to
+    the kernel's for f0's dtype."""
     B, L, _ = f0.shape
     block = block or block_rows(f0.dtype)
     S = f1.shape[1]
     n = _cdiv(L, block)
-    jbest = f0.new_empty((B, L), dtype=torch.int32)
-    jval = f0.new_empty((B, L), dtype=torch.float32)
+    spans = _chunks(S, chunks)
+    jbest = f0.new_empty((B, chunks, L), dtype=torch.int32)
+    jval = f0.new_empty((B, chunks, L), dtype=torch.float32)
     ipidx = f0.new_empty((B, n, S), dtype=torch.int32)
     ipval = f0.new_empty((B, n, S), dtype=torch.float32)
     base = torch.arange(n, device=f0.device)[:, None] * block
@@ -205,8 +287,9 @@ def dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
         sim = _sim(f0[b], f1[b], inv_t)
         br = torch.where(m1[b][None, :] > 0, 2.0 * sim - colterm[b][None, :],
                          NEG)
-        v, j = br.max(1)
-        jval[b], jbest[b] = v, j.int()
+        for c, (lo, hi) in enumerate(spans):
+            v, j = br[:, lo:hi].max(1)
+            jval[b, c], jbest[b, c] = v, (j + lo).int()
         bc = torch.where(m0[b][:, None] > 0, 2.0 * sim - rowterm[b][:, None],
                          NEG)
         v, i = _row_tiles(bc, block).max(1)
@@ -214,17 +297,37 @@ def dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
     return jbest, jval, ipidx, ipval
 
 
+def merge_row_stats(rmax, rsum):
+    """Row partials (B, chunks, L) -> (rmax, rsum) (B, L): log-sum-exp."""
+    if rmax.shape[1] == 1:
+        return rmax[:, 0], rsum[:, 0]
+    m = rmax.amax(1)
+    return m, (rsum * torch.exp(rmax - m[:, None])).sum(1)
+
+
+def merge_row_argmax(jbest, jval):
+    """Row partials (B, chunks, L) -> (jbest, jval) (B, L): the first
+    chunk holding the maximum, so an equal value in a lower chunk wins."""
+    if jval.shape[1] == 1:
+        return jbest[:, 0], jval[:, 0]
+    k = jval.argmax(1, keepdim=True)
+    return jbest.gather(1, k)[:, 0], jval.gather(1, k)[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def dsmax_stats(f0, f1, m0, m1, inv_t: float):
-    """Stats sweep: kernel on CUDA tensors, plain version on CPU tensors."""
+def stats_sweep(f0, f1, m0, m1, inv_t: float, chunks: int):
+    """Stats sweep in the kernel's layout (row partials over `chunks`
+    chunks of S): kernel on CUDA tensors, plain version on CPU tensors."""
     if f0.device.type == "cpu":
-        return dsmax_stats_plain(f0, f1, m0, m1, inv_t)
+        return dsmax_stats_plain(f0, f1, m0, m1, inv_t, chunks=chunks)
     _on_cuda(f0)
-    B, L, S, C, _, (n, _), _ = kernel_args(f0, f1, m0, m1)
-    rmax = torch.empty((B, L), dtype=torch.float32, device=f0.device)
+    B, L, S, C, block, _, _, n_ch = kernel_args(f0, f1, m0, m1,
+                                                chunks=chunks)
+    n = _cdiv(L, block)
+    rmax = torch.empty((B, n_ch, L), dtype=torch.float32, device=f0.device)
     rsum = torch.empty_like(rmax)
     cpmax = torch.empty((B, n, S), dtype=torch.float32, device=f0.device)
     cpsum = torch.empty_like(cpmax)
@@ -233,7 +336,7 @@ def dsmax_stats(f0, f1, m0, m1, inv_t: float):
         stream = torch.cuda.current_stream(f0.device).cuda_stream
         err = lib.dsmax_stats(_DTYPE_CODE[f0.dtype], f0.data_ptr(),
                               f1.data_ptr(), m0.data_ptr(), m1.data_ptr(),
-                              float(inv_t), B, L, S, C, rmax.data_ptr(),
+                              float(inv_t), B, L, S, C, n_ch, rmax.data_ptr(),
                               rsum.data_ptr(), cpmax.data_ptr(),
                               cpsum.data_ptr(), stream)
     if err:
@@ -242,14 +345,19 @@ def dsmax_stats(f0, f1, m0, m1, inv_t: float):
     return rmax, rsum, cpmax, cpsum
 
 
-def dsmax_argmax(f0, f1, m0, m1, colterm, rowterm, inv_t: float):
-    """Argmax sweep: kernel on CUDA tensors, plain version on CPU tensors."""
+def argmax_sweep(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
+                 chunks: int):
+    """Argmax sweep in the kernel's layout (row partials over `chunks`
+    chunks of S): kernel on CUDA tensors, plain version on CPU tensors."""
     if f0.device.type == "cpu":
-        return dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t)
+        return dsmax_argmax_plain(f0, f1, m0, m1, colterm, rowterm, inv_t,
+                                  chunks=chunks)
     _on_cuda(f0)
-    B, L, S, C, _, (n, _), _ = kernel_args(f0, f1, m0, m1, colterm, rowterm)
-    jbest = torch.empty((B, L), dtype=torch.int32, device=f0.device)
-    jval = torch.empty((B, L), dtype=torch.float32, device=f0.device)
+    B, L, S, C, block, _, _, n_ch = kernel_args(f0, f1, m0, m1, colterm,
+                                                rowterm, chunks=chunks)
+    n = _cdiv(L, block)
+    jbest = torch.empty((B, n_ch, L), dtype=torch.int32, device=f0.device)
+    jval = torch.empty((B, n_ch, L), dtype=torch.float32, device=f0.device)
     ipidx = torch.empty((B, n, S), dtype=torch.int32, device=f0.device)
     ipval = torch.empty((B, n, S), dtype=torch.float32, device=f0.device)
     lib = _lib()
@@ -258,13 +366,32 @@ def dsmax_argmax(f0, f1, m0, m1, colterm, rowterm, inv_t: float):
         err = lib.dsmax_argmax(_DTYPE_CODE[f0.dtype], f0.data_ptr(),
                                f1.data_ptr(), m0.data_ptr(), m1.data_ptr(),
                                colterm.data_ptr(), rowterm.data_ptr(),
-                               float(inv_t), B, L, S, C, jbest.data_ptr(),
-                               jval.data_ptr(), ipidx.data_ptr(),
-                               ipval.data_ptr(), stream)
+                               float(inv_t), B, L, S, C, n_ch,
+                               jbest.data_ptr(), jval.data_ptr(),
+                               ipidx.data_ptr(), ipval.data_ptr(), stream)
     if err:
         raise RuntimeError(f"dsmax_argmax launch failed: CUDA error {err}")
     LAUNCHES[_counted("dsmax_argmax", f0.dtype)] += 1
     return jbest, jval, ipidx, ipval
+
+
+def dsmax_stats(f0, f1, m0, m1, inv_t: float, chunks: int | None = None):
+    """Stats sweep: (rmax, rsum) (B, L) and column partials (cpmax, cpsum)
+    (B, L/block, S); S in `chunks` chunks (default `sweep_chunks`), the
+    row partials merged here."""
+    rmax, rsum, cpmax, cpsum = stats_sweep(f0, f1, m0, m1, inv_t,
+                                           _chunk_count(f0, f1, chunks))
+    return (*merge_row_stats(rmax, rsum), cpmax, cpsum)
+
+
+def dsmax_argmax(f0, f1, m0, m1, colterm, rowterm, inv_t: float,
+                 chunks: int | None = None):
+    """Argmax sweep: (jbest int32, jval) (B, L) and column partials (ipidx
+    int32, ipval) (B, L/block, S); S in `chunks` chunks (default
+    `sweep_chunks`), the row partials merged here."""
+    jbest, jval, ipidx, ipval = argmax_sweep(
+        f0, f1, m0, m1, colterm, rowterm, inv_t, _chunk_count(f0, f1, chunks))
+    return (*merge_row_argmax(jbest, jval), ipidx, ipval)
 
 
 def _masks(f0, f1, mask0, mask1):
@@ -280,7 +407,8 @@ def _masks(f0, f1, mask0, mask1):
 def dual_softmax_mutual(f0: torch.Tensor, f1: torch.Tensor,
                         temperature: float,
                         mask0: torch.Tensor | None = None,
-                        mask1: torch.Tensor | None = None):
+                        mask1: torch.Tensor | None = None,
+                        chunks: int | None = None):
     """Fused dual-softmax mutual matching over a batch of pairs.
 
     f0: (B, L, C), f1: (B, S, C) pre-scaled features (1/sqrt(C) applied),
@@ -288,7 +416,8 @@ def dual_softmax_mutual(f0: torch.Tensor, f1: torch.Tensor,
     int64, conf (B, L) float32, mutual (B, L) bool): the column argmax of
     conf per row, its value, and whether the match is mutual. Invalid rows
     get conf 0 and mutual False. Same as dense `dual_softmax` + row/column
-    argmax, without materialising (L, S).
+    argmax, without materialising (L, S). `chunks`: chunks of S in both
+    sweeps (default `sweep_chunks`; the result does not depend on it).
     """
     f0 = f0.contiguous()
     f1 = f1.contiguous()
@@ -297,7 +426,8 @@ def dual_softmax_mutual(f0: torch.Tensor, f1: torch.Tensor,
     m0, m1 = _masks(f0, f1, mask0, mask1)
     inv_t = 1.0 / temperature
 
-    rmax, rsum, cpmax, cpsum = dsmax_stats(f0, f1, m0, m1, inv_t)
+    chunks = _chunk_count(f0, f1, chunks)
+    rmax, rsum, cpmax, cpsum = dsmax_stats(f0, f1, m0, m1, inv_t, chunks)
     cmax = cpmax.amax(1)                                      # (B, S)
     csum = (cpsum * torch.exp(cpmax - cmax[:, None])).sum(1)
     # log-domain terms; masked slots get 0 (their sim is NEG in the sweeps)
@@ -306,7 +436,7 @@ def dual_softmax_mutual(f0: torch.Tensor, f1: torch.Tensor,
                           0.0).contiguous()
 
     jbest, jval, ipidx, ipval = dsmax_argmax(f0, f1, m0, m1, colterm,
-                                             rowterm, inv_t)
+                                             rowterm, inv_t, chunks)
     # column side: first row tile holding the maximum, then its row
     k = ipval.argmax(1, keepdim=True)                         # (B, 1, S)
     ibest = ipidx.gather(1, k)[:, 0].long()                   # (B, S)

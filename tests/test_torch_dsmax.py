@@ -125,7 +125,7 @@ def test_planted_row_tie_goes_to_first_index():
 
 @pytest.mark.parametrize("dtype,n_blocks", [
     (torch.bfloat16, 3),      # ceil(300 / 128): the wgmma kernel's blocks
-    (torch.float32, 5),       # ceil(300 / 64): the FMA kernel's
+    (torch.float32, 3),       # ceil(300 / 128): the SIMT kernel's
 ])
 def test_plain_sweeps_tile_layout(dtype, n_blocks):
     """The stats sweep's column partials come in the kernel's row blocks
@@ -156,14 +156,17 @@ def _kernel_inputs(B, L, S, C, dtype=torch.bfloat16):
 @pytest.mark.parametrize("C", [16, 32, 64, 256])
 def test_kernel_args_accepts(C):
     """Any C that is a multiple of 8 up to 256 (narrow widths are read
-    through a zero-filled 64-column box), bf16 in 128-row blocks."""
+    through a zero-filled 64-column box), bf16 in 128-row blocks over all
+    of S; float32 in 128-row blocks times the chunks of S that fill the
+    card (S = 129: two 128-column tiles, one chunk each)."""
     f0, f1, m0, m1 = _kernel_inputs(2, 300, 129, C)
     args = K.kernel_args(f0, f1, m0, m1)
-    assert args == (2, 300, 129, C, 128, (3, 2), 1)
+    assert args == (2, 300, 129, C, 128, (3, 2), 1, 1)
     terms = (torch.zeros(2, 129), torch.zeros(2, 300))
     assert K.kernel_args(f0, f1, m0, m1, *terms) == args
     f32 = _kernel_inputs(2, 300, 129, C, torch.float32)
-    assert K.kernel_args(*f32).grid == (5, 2)
+    assert K.kernel_args(*f32).grid == (6, 2)
+    assert K.kernel_args(*f32).chunks == 2
 
 
 @pytest.mark.parametrize("case,err", [
