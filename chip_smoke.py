@@ -69,7 +69,23 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    matcher in float32 with fused matching (K1's float32 kernels), 8192
    slots at threshold 0, on 8 in-memory pairs of 840^2 canvases at batch
    1; one launch of each float32 sweep per pair asserted; ms per pair
-   split into match and pair_metrics; the dump read back.
+   split into match and pair_metrics; the dump read back;
+14. main path of gim_lightglue: `Matcher("gim_lightglue")` at full width
+   (SuperPoint, 256-d descriptors, NMS radius 3, 2048 keypoints forced;
+   LightGlue, 9 layers of width 256 and 4 heads, filter threshold 0.1) in
+   float32 with TF32 off: one warm-up and 3 timed calls of 1 pair of 840^2
+   canvases with 840 x 630 content masks, then 3 timed calls at ZEB's
+   sweep batch of 16 (or the largest batch that fits); ms per pair,
+   pairs/s, peak memory, stage times and a profile; no launch of K1, K2 or
+   K3 asserted (the path runs none);
+15. gim_lightglue on the card against the CPU, same weights, inputs and
+   pad uniforms, full depth at 320 px and 256 keypoints, filter threshold
+   0, float32, TF32 off: keypoints and valid flags, log-assignment and
+   matches agree;
+16. the ZEB path of gim_lightglue: `eval.zeb.evaluate` on 16 in-memory
+   840^2 pairs at the batch phase 14 settled on, filter threshold 0, the
+   MAGSAC preset; ms per pair split into match and pair_metrics; the dump
+   read back.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}.
@@ -142,6 +158,15 @@ ZEB_MATCHES, ZEB_PAIRS = 8192, 8
 ZEB_SCENES = ((8192, 0.7), (2000, 0.4), (5000, 0.7), (8192, 0.4))
 ZEB_NOISE_PX = 0.1
 POSE_MAX_DEG, POSE_DIFF_DEG, MASK_AGREE = 2.0, 0.5, 0.99
+# gim_lightglue: the ZEB canvas and content at batch 1 (the demo's and
+# ZEB's size) and at the 12-benchmark sweep's batch of 16
+# (gim_tpu/cli/sweep.py:52); its card-against-CPU check at 320 px with 256
+# keypoints, where keypoints, valid flags and matches agree on >= 99 % of
+# slots (scores within float32 rounding can rank the other way round) and
+# the log-assignment within 1e-3 where the keypoints agree
+LG_BATCH, LG_ZEB_PAIRS = 16, 16
+LG_CHECK_IMG, LG_CHECK_KPTS = 320, 256
+LG_AGREE, LG_TOL = 0.99, 1e-3
 
 
 def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
@@ -223,7 +248,8 @@ class Smoke:
         self.failed: list[str] = []
         self.kernels: dict[str, dict] = {}
         self.card = ""
-        self.dev = "cuda"     # phases 12-13 read it; main() needs CUDA
+        self.dev = "cuda"     # phases 12-16 read it; main() needs CUDA
+        self.lg_batch = LG_BATCH      # phase 14 settles it, 16 reads it
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -1546,6 +1572,270 @@ class Smoke:
               f"{[round(t * 1e3, 2) for t in match_s]}), peak "
               f"{max(match_peak) / 2**30:.2f} GiB [{self.card}]")
 
+    # -- 14-16: gim_lightglue ---------------------------------------------
+    @staticmethod
+    def kernel_counts(reset: bool = False) -> dict:
+        """Every kernel's launch count (K1's four sweeps, K2, K3); with
+        `reset`, set them to 0 first."""
+        from gim_tpu_torch.ops.kernels import dsmax, flash, refiner
+
+        out = {}
+        for c in (dsmax.LAUNCHES, refiner.LAUNCHES, flash.LAUNCHES):
+            for k in c:
+                if reset:
+                    c[k] = 0
+                out[k] = c[k]
+        return out
+
+    def lightglue_main_path(self):
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+
+        dev = torch.device(self.dev)
+        S = ZEB_CANVAS
+        h, w = ZEB_CONTENT
+        t0 = time.perf_counter()
+        m = Matcher("gim_lightglue", generator=torch.Generator()
+                    .manual_seed(0), device=dev)
+        print(f"  matcher built in {time.perf_counter() - t0:.1f} s")
+        K = m.cfg.superpoint.max_num_keypoints
+        g = torch.Generator(device=dev).manual_seed(14)
+        mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
+        mask[:, :h, :w] = True
+
+        def pairs(B):
+            mk = mask.expand(B, S, S)
+            return tuple(torch.rand((B, 3, S, S), device=dev, generator=g)
+                         * mk[:, None] for _ in range(2)) + (None, None,
+                                                             mk, mk)
+
+        self.kernel_counts(reset=True)
+        calls = 0
+
+        def one(args):
+            """One match call: finite outputs of the right shapes, every
+            image-0 slot (a keypoint or a padded slot) inside the
+            content."""
+            nonlocal calls
+            r = m.match(*args)
+            torch.cuda.synchronize()
+            calls += 1
+            B = args[0].shape[0]
+            assert r.kpts0.shape == (B, K, 2) and r.kpts1.shape == (B, K, 2)
+            assert r.conf.shape == (B, K) and r.valid.shape == (B, K)
+            for t in (r.kpts0, r.kpts1, r.conf):
+                assert bool(torch.isfinite(t).all())
+            k0 = r.kpts0
+            assert bool((k0 > 0).all() and (k0[..., 0] < w + 0.5).all()
+                        and (k0[..., 1] < h + 0.5).all())
+            return r
+
+        def timed(B, what):
+            batch = [pairs(B) for _ in range(3)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for args in batch:
+                t0 = time.perf_counter()
+                r = one(args)
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            ms = statistics.median(times) * 1e3
+            print(f"  {what}: {B} pair(s) of {S}^2 canvases ({w} x {h} "
+                  f"content), float32, TF32 off: median {ms:.2f} ms per "
+                  f"call, {ms / B:.2f} ms per pair, {B / (ms / 1e3):.3f} "
+                  f"pairs/s (runs {[round(t * 1e3, 2) for t in times]}), "
+                  f"peak memory {peak / 2**30:.2f} GiB; valid matches "
+                  f"{r.valid.sum(1).tolist()[:4]} of {K} at threshold "
+                  f"{m.cfg.lightglue.filter_threshold} [{self.card}]")
+            return batch
+
+        one(pairs(1))                                   # warm-up
+        small = timed(1, "batch 1")
+        B = LG_BATCH
+        while True:
+            try:
+                one(pairs(B))                           # warm-up
+                break
+            except torch.cuda.OutOfMemoryError:
+                if B == 1:
+                    raise
+                print(f"  batch {B} does not fit in the card's memory; "
+                      f"trying {B // 2}")
+                torch.cuda.empty_cache()
+                B //= 2
+        self.lg_batch = B
+        big = timed(B, f"batch {B}" + ("" if B == LG_BATCH else
+                                        f" (not {LG_BATCH}: out of memory)"))
+        counts = self.kernel_counts()
+        print(f"  main path: {calls} match calls; kernel launches {counts}")
+        assert not any(counts.values()), counts
+        self.lightglue_stages(m, small[1], "one call at batch 1")
+        self.lightglue_stages(m, big[1], f"one call at batch {B}")
+        self.profile(lambda: m.match(*small[2]))
+        self.profile(lambda: m.match(*big[2]), top=12)
+
+    def lightglue_stages(self, m, args, what):
+        """Time on the card's stream of each stage of one call: SuperPoint's
+        dense heads and the detection after them (NMS, borders, top-k,
+        descriptor sampling), once per image; LightGlue's layers; its
+        assignment and mutual filter."""
+        lg = m.model.lightglue
+        mods = {"superpoint": m.model.superpoint, "lightglue": lg,
+                "first": lg.transformers[0], "last": lg.transformers[-1]}
+        ev, _, total = self.timed_call(m, args, mods)
+        sp, glue = ev["superpoint"], ev["lightglue"]
+        spans = {
+            "SuperPoint dense heads (2 images)":
+                sp[0].elapsed_time(sp[1]) + sp[2].elapsed_time(sp[3]),
+            "detection: NMS, borders, top-k, sampling (2 images)":
+                sp[1].elapsed_time(sp[2]) + sp[3].elapsed_time(glue[0]),
+            f"LightGlue's {len(lg.transformers)} layers":
+                ev["first"][0].elapsed_time(ev["last"][1]),
+            "assignment and filter": ev["last"][1].elapsed_time(glue[1]),
+        }
+        self.print_stages(what, spans, total,
+                          "rest (position encoding, pad uniforms, gather)")
+
+    # -- 15 -----------------------------------------------------------------
+    def lightglue_card_vs_cpu(self):
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.config import (GimConfig, LightGlueConfig,
+                                          SuperPointConfig)
+        from gim_tpu_torch.models.superpoint import extract
+
+        cfg = GimConfig(
+            superpoint=SuperPointConfig(max_num_keypoints=LG_CHECK_KPTS),
+            lightglue=LightGlueConfig(filter_threshold=0.0))
+        cpu = Matcher("gim_lightglue", cfg, generator=torch.Generator()
+                      .manual_seed(0), device="cpu")
+        card = Matcher("gim_lightglue", cfg,
+                       state_dict=cpu.model.state_dict(), device=self.dev)
+        S, h = LG_CHECK_IMG, LG_CHECK_IMG * 3 // 4
+        g = torch.Generator().manual_seed(15)
+        mask = torch.zeros(2, S, S, dtype=torch.bool)
+        mask[:, :h] = True
+        imgs = [torch.rand((2, 3, S, S), generator=g) * mask[:, None]
+                for _ in range(2)]
+        noise = [torch.rand((2, LG_CHECK_KPTS, 2), generator=g)
+                 for _ in range(2)]
+        hw = torch.tensor([[h, S]] * 2, dtype=torch.float32)
+
+        def run(model, dev):
+            with torch.inference_mode():
+                p = [extract(model.superpoint, im.to(dev), cfg.superpoint,
+                             hw.to(dev), n.to(dev))
+                     for im, n in zip(imgs, noise)]
+                wh = hw.flip(-1).to(dev)
+                out = model.lightglue(
+                    p[0]["keypoints"], p[1]["keypoints"],
+                    p[0]["descriptors"], p[1]["descriptors"], wh, wh,
+                    p[0]["valid"], p[1]["valid"])
+            return ([{k: v.cpu() for k, v in q.items()} for q in p],
+                    {k: v.cpu() for k, v in out.items()})
+
+        (c0, c1), co = run(card.model, self.dev)
+        (h0, h1), ho = run(cpu.model, "cpu")
+        same = [(a["keypoints"] == b["keypoints"]).all(-1)
+                & (a["valid"] == b["valid"]) for a, b in ((c0, h0), (c1, h1))]
+        share = float(torch.cat(same, 1).float().mean())
+        # rows and columns whose keypoints agree, dustbins included
+        rows = torch.cat([same[0], torch.ones(2, 1, dtype=torch.bool)], 1)
+        cols = torch.cat([same[1], torch.ones(2, 1, dtype=torch.bool)], 1)
+        both = rows[:, :, None] & cols[:, None, :]
+        la = float((co["log_assignment"] - ho["log_assignment"])
+                   .abs()[both].max())
+        v = h0["valid"]
+        m_agree = float((co["matches0"] == ho["matches0"])[v].float().mean())
+        n_match = int((ho["matches0"] >= 0).sum())
+        print(f"  2 pairs at {S} px ({S} x {h} content), {LG_CHECK_KPTS} "
+              f"keypoints, {cfg.lightglue.n_layers} layers of width "
+              f"{cfg.lightglue.descriptor_dim}, threshold 0, float32, "
+              f"TF32 off: keypoints and valid flags equal on {share:.4f} of "
+              f"slots (limit {LG_AGREE}); log-assignment max diff {la:.2e} "
+              f"where they agree (limit {LG_TOL}); matches0 equal on "
+              f"{m_agree:.4f} of valid slots (limit {LG_AGREE}); "
+              f"{n_match} matches on the CPU")
+        assert share >= LG_AGREE and la <= LG_TOL and m_agree >= LG_AGREE
+        assert n_match > 0 and int(v.sum()) > 0
+
+    # -- 16 -----------------------------------------------------------------
+    def lightglue_zeb_path(self):
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.cli.analysis import read_dump
+        from gim_tpu_torch.config import GimConfig, LightGlueConfig
+        from gim_tpu_torch.eval import zeb as E
+
+        n_hyp, use_conf = E.RANSAC_ZOO["MAGSAC"]
+        B = self.lg_batch
+        cfg = GimConfig(lightglue=LightGlueConfig(filter_threshold=0.0))
+        m = Matcher("gim_lightglue", cfg, generator=torch.Generator()
+                    .manual_seed(0), device=self.dev)
+        rng = np.random.default_rng(16)
+        pairs = [zeb_batch(rng, i) for i in range(LG_ZEB_PAIRS)]
+        batches = [stack_batches(pairs[i:i + B])
+                   for i in range(0, LG_ZEB_PAIRS, B)]
+        match_s = []
+
+        def match(batch):
+            t0 = time.perf_counter()
+            r = m.match(*(batch[k] for k in ("color0", "color1", "scale0",
+                                             "scale1", "mask0", "mask1")))
+            torch.cuda.synchronize()
+            match_s.append(time.perf_counter() - t0)
+            return r
+
+        self.kernel_counts(reset=True)
+        E.evaluate(match, iter(batches[:1]), num_hypotheses=n_hyp,
+                   use_conf=use_conf, progress=False)          # warm-up
+        torch.cuda.synchronize()
+        match_s.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows = E.evaluate(match, iter(batches), num_hypotheses=n_hyp,
+                          use_conf=use_conf, progress=False)
+        total = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        counts = self.kernel_counts()
+        assert not any(counts.values()), counts
+        n = len(rows)
+        match_ms = sum(match_s) * 1e3
+        print(f"  gim_lightglue f32, threshold 0, {n} pairs of "
+              f"{ZEB_CANVAS}^2 canvases in {len(batches)} batch(es) of {B}, "
+              f"MAGSAC preset ({n_hyp} hypotheses): {total / n:.2f} ms per "
+              f"pair, of which match {match_ms / n:.2f} ms and pair_metrics "
+              f"(with the host copies of the rows) "
+              f"{(total - match_ms) / n:.2f} ms; {n / (total / 1e3):.3f} "
+              f"pairs/s; peak memory {peak / 2**30:.2f} GiB; no kernel "
+              f"launch [{self.card}]")
+        n_valid = [len(r["epi_errs"]) for r in rows]
+        with tempfile.TemporaryDirectory() as d:
+            path = E.write_dump(rows, d, "gim_lightglue", "ZEB-memory",
+                                "smoke")
+            det = read_dump(path)
+        print(f"  dump: {len(det['R_errs'])} rows read back by "
+              f"cli/analysis.read_dump; valid matches per pair {n_valid} "
+              f"(seeded random weights: no quality claim)")
+        assert len(det["R_errs"]) == LG_ZEB_PAIRS == n
+        assert sum(n_valid) > 0
+
+
+def stack_batches(batches: list[dict]) -> dict:
+    """One batch of the pairs of `batches` (each a `zeb_batch`)."""
+    import numpy as np
+
+    return {k: (sum((b[k] for b in batches), []) if isinstance(v, list)
+                else np.concatenate([b[k] for b in batches]))
+            for k, v in batches[0].items()}
+
 
 def gt_scene(rng, m: int, n_valid: int, inlier_share: float,
              noise_px: float, f: float = 600.0, im: int = 840):
@@ -1646,6 +1936,10 @@ def main() -> int:
         s.phase("11 gim_dkm switch on against off", s.dkm_switch_on_off)
         s.phase("12 ZEB geometry on the card", s.zeb_geometry)
         s.phase("13 ZEB path", s.zeb_path)
+        s.phase("14 gim_lightglue main path", s.lightglue_main_path)
+        s.phase("15 gim_lightglue card against CPU",
+                s.lightglue_card_vs_cpu)
+        s.phase("16 gim_lightglue ZEB path", s.lightglue_zeb_path)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

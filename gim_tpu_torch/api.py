@@ -1,12 +1,11 @@
 """High-level matcher API of the PyTorch port.
 
-Port of `gim_tpu/api.py:27-140` and `:198-315`: build a matcher by name,
-feed a batch of image pairs, get a `MatchResult` of fixed-shape tensors
-with a validity mask. `gim_loftr`, `gim_dkm`, `gim_roma` and `root_sift`
-(`gim_tpu/api.py:129-132`, `:143-176`: SIFT on the host with cv2, the
-match on the device) are ported; `gim_lightglue` raises
-`NotImplementedError` naming the slice of the port (ROADMAP.md) that
-brings it.
+Port of `gim_tpu/api.py:27-353`: build a matcher by name, feed a batch
+of image pairs, get a `MatchResult` of fixed-shape tensors with a
+validity mask. Every head of the JAX package's `MODEL_ZOO` is here:
+`gim_lightglue` (SuperPoint and LightGlue), `gim_loftr`, `gim_dkm`,
+`gim_roma` and `root_sift` (`gim_tpu/api.py:129-132`, `:143-176`: SIFT
+on the host with cv2, the match on the device).
 
 Entry points run on the GPU (`device="cuda"`, the default) unless the
 caller passes `device="cpu"`, and raise if CUDA is asked for and absent.
@@ -25,8 +24,10 @@ from gim_tpu_torch import config as C
 from gim_tpu_torch.models.common import init_weights
 from gim_tpu_torch.models.dkm.model import (DKMMatcher, sample_matches,
                                             warp_to_pixels)
+from gim_tpu_torch.models.lightglue import LightGlue
 from gim_tpu_torch.models.loftr import LoFTRMatcher
 from gim_tpu_torch.models.roma import RoMaMatcher
+from gim_tpu_torch.models.superpoint import SuperPointNet, extract
 from gim_tpu_torch.utils.device import resolve_device, set_tf32, torch_dtype
 from gim_tpu_torch.weights import port
 
@@ -47,19 +48,16 @@ class MatchResult:
 
 
 MODEL_ZOO = ("gim_lightglue", "gim_loftr", "gim_dkm", "gim_roma", "root_sift")
-_LATER_SLICE = {"gim_lightglue": 5}
 # the JAX package samples from PRNGKey(11) (gim_roma, gim_tpu/api.py:250)
-# and PRNGKey(7) (gim_dkm, :301)
+# and PRNGKey(7) (gim_dkm, :301), and places gim_lightglue's empty
+# keypoint slots from PRNGKey(97) and PRNGKey(131) (:336-339)
 SAMPLE_SEED = {"gim_roma": 11, "gim_dkm": 7}
+PAD_SEEDS = (97, 131)
 
 
 def _check_name(name: str):
     if name not in MODEL_ZOO:
         raise ValueError(f"unknown model {name}; choose from {MODEL_ZOO}")
-    if name in _LATER_SLICE:
-        raise NotImplementedError(
-            f"{name} is not ported to gim_tpu_torch yet; it comes with "
-            f"slice {_LATER_SLICE[name]} of the port (ROADMAP.md)")
 
 
 def build_model(name: str, cfg: C.GimConfig) -> torch.nn.Module | None:
@@ -71,13 +69,18 @@ def build_model(name: str, cfg: C.GimConfig) -> torch.nn.Module | None:
         return RoMaMatcher(cfg.roma)
     if name == "gim_dkm":
         return DKMMatcher(cfg.dkm)
+    if name == "gim_lightglue":
+        return torch.nn.ModuleDict({
+            "superpoint": SuperPointNet(cfg.superpoint.descriptor_dim),
+            "lightglue": LightGlue(cfg.lightglue)})
     return LoFTRMatcher(cfg.loftr)
 
 
 def _model_dtype(name: str, cfg: C.GimConfig) -> torch.dtype:
     """The dtype the parameters are stored in: gim_loftr stores them in
     its compute dtype; gim_dkm and gim_roma keep them float32 and cast at
-    each layer, as the JAX package does (models/common.py)."""
+    each layer, as the JAX package does (models/common.py); gim_lightglue
+    runs in float32 (the JAX package gives it no dtype)."""
     if name == "gim_loftr":
         return torch_dtype(cfg.loftr.dtype)
     return torch.float32
@@ -128,7 +131,8 @@ class Matcher:
                         cfg: C.GimConfig | None = None,
                         device: str | torch.device = "cuda") -> "Matcher":
         """Build from a reference-layout torch checkpoint (key prefixes
-        stripped as ref trainer/lightning.py:68-99 does). gim_roma also
+        stripped as ref trainer/lightning.py:68-99 does; gim_lightglue's
+        early-exit heads dropped, `weights/port.py`). gim_roma also
         loads `dinov2_vitl14_pretrain.pth` from the checkpoint's directory
         where it is (gim_tpu/api.py:103-110); without it the trunk keeps
         seeded random weights."""
@@ -145,6 +149,9 @@ class Matcher:
             sd = port.roma_model_state_dict(raw, dino)
         elif name == "gim_dkm":
             sd = port.dkm_checkpoint_state_dict(raw)
+        elif name == "gim_lightglue":
+            sd = port.lightglue_checkpoint_state_dict(
+                raw, (cfg or C.GimConfig()).lightglue.n_layers)
         else:
             sd = port.loftr_checkpoint_state_dict(raw)
         return cls(name, cfg, state_dict=sd, device=device)
@@ -165,7 +172,7 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
              image1, scale0=None, scale1=None, mask0=None, mask1=None, *,
              device: str | torch.device = "cuda",
              generator: torch.Generator | None = None,
-             sample_noise=None) -> MatchResult:
+             sample_noise=None, pad_noise=None) -> MatchResult:
     """Run `model` (built by `build_model`, on `device`; None for
     root_sift) on a batch of pairs. Inputs are moved to `device`; missing
     scales are ones.
@@ -174,7 +181,12 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
     (default: a generator on `device` seeded at each call, 7 for gim_dkm
     and 11 for gim_roma, so a call is reproducible as the JAX package's
     is), or from `sample_noise`, one (g1, g2) pair of Gumbel draws per
-    pair of images (`models/dkm/model.py:sample_matches`)."""
+    pair of images (`models/dkm/model.py:sample_matches`).
+
+    gim_lightglue places the keypoint slots that SuperPoint leaves empty
+    at random: from `pad_noise`, one (B, K, 2) tensor of uniforms in
+    [0, 1) per image, or else from generators on `device` seeded 97 and
+    131 at each call."""
     _check_name(name)
     dev = resolve_device(device)
     B = image0.shape[0]
@@ -199,6 +211,9 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
             dense = _match_roma if name == "gim_roma" else _match_dkm
             return dense(cfg, model, image0, image1, scale0, scale1, mask0,
                          mask1, generator, sample_noise)
+        if name == "gim_lightglue":
+            return _match_lightglue(cfg, model, image0, image1, scale0,
+                                    scale1, mask0, mask1, pad_noise)
         out = model(image0, image1, scale0, scale1, mask0, mask1)
     return MatchResult(out["mkpts0_f"], out["mkpts1_f"], out["mconf"],
                        out["valid"])
@@ -236,14 +251,56 @@ def _match_root_sift(image0, image1, scale0, scale1,
                        torch.stack(vs))
 
 
+def _content_wh(mask) -> torch.Tensor:
+    """(B, 2) float (w, h) of the content of each (B, H, W) mask: its
+    longest row and its longest column."""
+    h = mask.sum(1).amax(-1).float()
+    w = mask.sum(2).amax(-1).float()
+    return torch.stack([w, h], dim=-1)
+
+
 def _mask_extent(mask, H: int, W: int):
     """(B, 2) (w_frac, h_frac) valid-content fraction of each canvas
     (gim_tpu/api.py:218-224)."""
     if mask is None:
         return None
-    h = mask.sum(1).amax(-1).float()
-    w = mask.sum(2).amax(-1).float()
-    return torch.stack([w / W, h / H], dim=-1)
+    wh = _content_wh(mask)
+    return torch.stack([wh[:, 0] / W, wh[:, 1] / H], dim=-1)
+
+
+def _match_lightglue(cfg: C.GimConfig, model, image0, image1, scale0,
+                     scale1, mask0, mask1, pad_noise) -> MatchResult:
+    """SuperPoint on both images, LightGlue, and each keypoint of image 0
+    with its partner (gim_tpu/api.py:318-353; ref demo.py:472-511): one
+    slot per keypoint of image 0, keypoints in the original frame."""
+    B, _, H, W = image0.shape
+    dev = image0.device
+
+    def true_wh(mask):
+        if mask is None:
+            return torch.stack([torch.full((B,), float(W), device=dev),
+                                torch.full((B,), float(H), device=dev)], -1)
+        return _content_wh(mask)
+
+    wh0, wh1 = true_wh(mask0), true_wh(mask1)
+    if pad_noise is None:
+        K = cfg.superpoint.max_num_keypoints
+        pad_noise = [torch.rand((B, K, 2), device=dev,
+                                generator=torch.Generator(dev).manual_seed(s))
+                     for s in PAD_SEEDS]
+    sp = model.superpoint
+    p0 = extract(sp, image0, cfg.superpoint, wh0.flip(-1), pad_noise[0])
+    p1 = extract(sp, image1, cfg.superpoint, wh1.flip(-1), pad_noise[1])
+    out = model.lightglue(p0["keypoints"], p1["keypoints"],
+                          p0["descriptors"], p1["descriptors"], wh0, wh1,
+                          p0["valid"], p1["valid"])
+    m0 = out["matches0"]                          # (B, K) partner or -1
+    valid = m0 >= 0
+    k0 = p0["keypoints"] * scale0[:, None, :]
+    k1 = p1["keypoints"] * scale1[:, None, :]
+    k1_m = torch.gather(k1, 1, m0.clamp_min(0)[..., None].expand(-1, -1, 2))
+    conf = torch.where(valid, out["matching_scores0"], 0.0)
+    return MatchResult(k0, k1_m, conf, valid)
 
 
 def _match_roma(cfg: C.GimConfig, model, image0, image1, scale0, scale1,

@@ -23,7 +23,8 @@ def build_matcher(weight: str, ckpt: str | None, img_size: int,
                   dtype: str = "float32", device: str = "cuda"):
     """Returns match(batch) -> MatchResult on `device`. On CUDA gim_loftr
     takes the fused dual-softmax matching (kernel K1), as the JAX package
-    does on the TPU."""
+    does on the TPU. `dtype` applies to gim_loftr, gim_dkm and gim_roma,
+    as in the JAX CLI; gim_lightglue runs in float32."""
     import torch
 
     from gim_tpu_torch.api import Matcher
@@ -107,14 +108,12 @@ def main(argv=None):
                         "the on-device solver")
     args = p.parse_args(argv)
 
-    from gim_tpu_torch.api import _check_name
     from gim_tpu_torch.data import zeb as Z
     from gim_tpu_torch.eval import zeb as E
     from gim_tpu_torch.geometry.pose import error_auc_trapezoid
     from gim_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)           # no CUDA and no --device cpu: raise
-    _check_name(args.weight)              # unported heads name their slice
 
     # skip-if-dump-exists (ref test.py:224-230)
     spec = Z.BENCHMARKS[args.tests]

@@ -1,9 +1,11 @@
-"""Attention primitives: elu+1 linear attention, full attention, sdpa.
+"""Attention primitives: elu+1 linear attention, full attention, sdpa,
+and LightGlue's rotary encoding.
 
-Port of `gim_tpu/ops/attention.py:21-120` (reference semantics: LoFTR
+Port of `gim_tpu/ops/attention.py:21-134` (reference semantics: LoFTR
 LinearAttention and FullAttention, ref networks/loftr/submodules/
-attentions.py:14-81; torch SDPA for the ViTs). Layouts are [N, L, H, D]
-as in the JAX package, and [..., H, L, D] for `sdpa`.
+attentions.py:14-81; torch SDPA for the ViTs and LightGlue; LightGlue's
+rotary position encoding, ref matchers/lightglue.py:36-44). Layouts are
+[N, L, H, D] as in the JAX package, and [..., H, L, D] for `sdpa`.
 
 The JAX package has two forms of linear attention: the head-split
 `linear_attention` and `linear_attention_chan`, which computes the same
@@ -76,3 +78,16 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         a = torch.nan_to_num(a)
     return a @ v
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """Pairwise (-x2, x1) rotation on the last dim, in the reference's
+    unflatten(-1, (-1, 2)) layout (`gim_tpu/ops/attention.py:123-128`)."""
+    x = x.unflatten(-1, (-1, 2))
+    return torch.stack([-x[..., 1], x[..., 0]], dim=-1).flatten(-2)
+
+
+def apply_rotary(x: torch.Tensor, encoding: torch.Tensor) -> torch.Tensor:
+    """encoding: stacked (2, ..., D) [cos, sin] of the learnable Fourier
+    position encoding (`gim_tpu/ops/attention.py:131-134`)."""
+    return x * encoding[0] + rotate_half(x) * encoding[1]

@@ -1,7 +1,8 @@
-"""Bilinear grid sampling.
+"""Bilinear grid sampling, and SuperPoint's descriptor sampling.
 
-Port of `gim_tpu/ops/sampling.py:39-96` (`grid_sample`), which the JAX
-package writes as four row gathers because the TPU has no sampler. Its
+Port of `gim_tpu/ops/sampling.py:20-127`: `safe_l2_normalize`,
+`grid_sample` and `sample_descriptors`. The JAX package writes
+`grid_sample` as four row gathers because the TPU has no sampler. Its
 rule is torch's (`F.grid_sample`, bilinear, padding "zeros" or "border"),
 so here it is that call, in the JAX package's layout. Sampling runs in
 float32 whatever the image's dtype: `F.grid_sample` wants the grid in the
@@ -16,11 +17,20 @@ import torch
 import torch.nn.functional as F
 
 
+def safe_l2_normalize(x: torch.Tensor, dim: int = -1,
+                      eps: float = 1e-12) -> torch.Tensor:
+    """`x * rsqrt(sum(x^2) + eps)` along `dim`, the JAX package's form
+    (finite at an exact zero vector), not `F.normalize`'s
+    `x / max(||x||, eps)`."""
+    return x * torch.rsqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
+
+
 def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
+                align_corners: bool = False,
                 padding_mode: str = "zeros") -> torch.Tensor:
     """Bilinear sample `image` (..., C, H, W) at `grid` (..., P, 2), xy in
-    [-1, 1], align_corners=False (the reference convention). The leading
-    dims of both are equal. Returns (..., C, P) in float32."""
+    [-1, 1] (align_corners=False is the reference convention). The
+    leading dims of both are equal. Returns (..., C, P) in float32."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unsupported padding_mode {padding_mode!r}")
     C, H, W = image.shape[-3:]
@@ -29,5 +39,28 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
     img = image.reshape(-1, C, H, W).float()
     g = grid.reshape(-1, 1, P, 2).float()
     out = F.grid_sample(img, g, mode="bilinear", padding_mode=padding_mode,
-                        align_corners=False)                  # (N, C, 1, P)
+                        align_corners=align_corners)          # (N, C, 1, P)
     return out.reshape(*lead, C, P)
+
+
+def sample_descriptors(kpts: torch.Tensor, descriptors: torch.Tensor,
+                       s: int = 8, legacy: bool = False) -> torch.Tensor:
+    """SuperPoint's descriptors at keypoints (`gim_tpu/ops/sampling.py:
+    99-127`). kpts: (B, K, 2) xy in full-resolution pixels; descriptors:
+    (B, C, Hc, Wc) at stride `s`. Returns (B, K, C), L2-normalized.
+
+    legacy=True is the reference's normalization that its weights were
+    trained with (ref superpoint.py:117-134): (kpts - s/2 + 0.5) divided
+    by s * size - s/2 - 0.5, align_corners=True. legacy=False is the
+    fixed half-pixel grid (ref superpoint.py:139-150), align_corners=False.
+    The divisors are Python numbers: a tensor made from them on the card
+    would be a host-to-device copy that waits for the stream."""
+    C, Hc, Wc = descriptors.shape[-3:]
+    if legacy:
+        x = kpts - s / 2 + 0.5
+        div = (Wc * s - s / 2 - 0.5, Hc * s - s / 2 - 0.5)
+    else:
+        x, div = kpts, (Wc * s, Hc * s)
+    g = torch.stack([x[..., 0] / div[0], x[..., 1] / div[1]], -1) * 2 - 1
+    out = grid_sample(descriptors, g, align_corners=legacy)
+    return safe_l2_normalize(out.transpose(-1, -2), dim=-1)

@@ -10,9 +10,15 @@ sits under `dinov2.` in the port's model. A gim_dkm checkpoint's keys
 carry `model.`, and it holds torchvision's unused `encoder.net.fc`
 (`port.py:258-261`).
 
-`loftr_state_dict_from_jax`, `roma_state_dict_from_jax` and
-`dkm_state_dict_from_jax` are the exact inverses of the JAX package's
-`port_loftr`, `port_roma` + `port_dinov2` and `port_dkm`: they turn a
+A gim_lightglue checkpoint holds SuperPoint under `superpoint.` and
+LightGlue under `model.`, with the reference's early-exit heads, which
+are dropped (`port.py:99-145`).
+
+`loftr_state_dict_from_jax`, `roma_state_dict_from_jax`,
+`dkm_state_dict_from_jax`, `superpoint_state_dict_from_jax` and
+`lightglue_state_dict_from_jax` are the exact inverses of the JAX
+package's `port_loftr`, `port_roma` + `port_dinov2`, `port_dkm`,
+`port_superpoint` and `port_lightglue`: they turn a
 `{"params", "batch_stats"}` tree of numpy arrays into the port's state
 dicts, so both packages can run on the same weights.
 """
@@ -322,4 +328,85 @@ def dkm_state_dict_from_jax(variables: Mapping
     left = list(u.params) + [f"batch_stats/{k}" for k in u.stats]
     if left:
         raise ValueError(f"unmapped dkm leaves: {left[:8]}")
+    return u.sd
+
+
+# ---------------------------------------------------------------------------
+# gim_lightglue
+# ---------------------------------------------------------------------------
+
+SUPERPOINT_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a",
+                    "conv3b", "conv4a", "conv4b", "convPa", "convPb",
+                    "convDa", "convDb")
+# the reference's early-exit heads, which the static-depth forward never
+# runs (gim_tpu/weights/port.py:116-145 drops them; the final
+# log_assignment head is kept)
+LIGHTGLUE_DROP = ("log_assignment.", "token_confidence.",
+                  "confidence_thresholds")
+
+
+def split_gim_lightglue(sd: Mapping) -> tuple[dict, dict]:
+    """A gim_lightglue checkpoint -> (SuperPoint's, LightGlue's) state
+    dicts, by their `superpoint.` and `model.` prefixes
+    (gim_tpu/weights/port.py:99-102; ref demo.py:378-395)."""
+    def strip(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items()
+                if k.startswith(prefix)}
+
+    return strip("superpoint."), strip("model.")
+
+
+def lightglue_checkpoint_state_dict(sd: Mapping, n_layers: int = 9
+                                    ) -> dict[str, torch.Tensor]:
+    """A reference gim_lightglue checkpoint's state dict as the port's
+    gim_lightglue module (`superpoint.*`, `lightglue.*`) loads it
+    strictly: the early-exit heads (`token_confidence.*`, every
+    `log_assignment.*` but the last layer's, `confidence_thresholds`)
+    dropped, as `port_lightglue` drops them."""
+    sp_sd, lg_sd = split_gim_lightglue(sd)
+    last = f"log_assignment.{n_layers - 1}."
+    out = {f"superpoint.{k}": v for k, v in sp_sd.items()}
+    out.update({f"lightglue.{k}": v for k, v in lg_sd.items()
+                if k.startswith(last)
+                or not any(p in k for p in LIGHTGLUE_DROP)})
+    return out
+
+
+def superpoint_state_dict_from_jax(variables: Mapping
+                                   ) -> OrderedDict[str, torch.Tensor]:
+    """JAX SuperPointNet variables -> the port's SuperPointNet state dict
+    (the inverse of `gim_tpu.weights.port.port_superpoint`). Raises if a
+    leaf of the tree is left over."""
+    u = _FromJax(variables)
+    for name in SUPERPOINT_CONVS:
+        u.conv(name, name)
+    if u.params:
+        raise ValueError(f"unmapped superpoint leaves: {list(u.params)[:8]}")
+    return u.sd
+
+
+def lightglue_state_dict_from_jax(variables: Mapping, n_layers: int
+                                  ) -> OrderedDict[str, torch.Tensor]:
+    """JAX LightGlue variables -> the port's LightGlue state dict (the
+    inverse of `gim_tpu.weights.port.port_lightglue`). Raises if a leaf of
+    the tree is left over."""
+    u = _FromJax(variables)
+    u.dense("posenc/Wr", "posenc.Wr")
+    if u.has("input_proj/kernel"):
+        u.dense("input_proj", "input_proj")
+    for i in range(n_layers):
+        for f, t, projs in ((f"self_{i}", f"transformers.{i}.self_attn",
+                             ("Wqkv", "out_proj")),
+                            (f"cross_{i}", f"transformers.{i}.cross_attn",
+                             ("to_qk", "to_v", "to_out"))):
+            for p in projs:
+                u.dense(f"{f}/{p}", f"{t}.{p}")
+            u.dense(f"{f}/ffn/fc1", f"{t}.ffn.0")
+            u.layernorm(f"{f}/ffn/norm", f"{t}.ffn.1")
+            u.dense(f"{f}/ffn/fc2", f"{t}.ffn.3")
+    la = f"log_assignment.{n_layers - 1}"
+    u.dense("assign_final/final_proj", f"{la}.final_proj")
+    u.dense("assign_final/matchability", f"{la}.matchability")
+    if u.params:
+        raise ValueError(f"unmapped lightglue leaves: {list(u.params)[:8]}")
     return u.sd

@@ -80,9 +80,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
 
 
 @pytest.mark.parametrize("name", ["gim_lightglue"])
-def test_unported_heads_name_their_slice(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        api.Matcher(name, device="cpu")
+def test_unported_heads_name_their_slice(name, monkeypatch):
+    """The last head that named a later slice of the port is ported: it
+    builds on the CPU at full width and, as every head, raises without
+    CUDA when the card is asked for."""
+    m = api.Matcher(name, device="cpu")
+    assert {p.device.type for p in m.model.parameters()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.Matcher(name)
 
 
 def test_checkpoint_loads_with_strict_keys(tmp_path):

@@ -282,12 +282,19 @@ def test_cli_root_sift_dump_analysis_check(tmp_path, monkeypatch, capsys):
     assert "auc@5" in out and "Good" in out
 
 
-def test_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch):
+def test_cli_raises_without_cuda_unless_asked_for_cpu(monkeypatch,
+                                                     tmp_path):
+    """Without CUDA the CLI raises unless --device cpu is given; with it,
+    gim_lightglue (seeded random weights) writes a dump of 2 pairs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_cli.main(["--synthetic", "--weight", "root_sift"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        t_cli.main(["--weight", "gim_lightglue", "--device", "cpu"])
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    t_cli.main(["--synthetic", "--weight", "gim_lightglue", "--device",
+                "cpu", "--synthetic_pairs", "2", "--img_size", "160",
+                "--ransac", "FAST", "--out_dir", str(tmp_path / "t")])
+    path = TE.dump_path(str(tmp_path / "t"), "gim_lightglue", "GL3D", "v0")
+    assert len(t_analysis.read_dump(path)["R_errs"]) == 2
 
 
 def test_chip_smoke_imports_no_cv2():
