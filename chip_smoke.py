@@ -85,7 +85,24 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
 16. the ZEB path of gim_lightglue: `eval.zeb.evaluate` on 16 in-memory
    840^2 pairs at the batch phase 14 settled on, filter threshold 0, the
    MAGSAC preset; ms per pair split into match and pair_metrics; the dump
-   read back.
+   read back;
+17. gim_loftr's training step (the training CLI's `Trainer`, float32, TF32
+   off, 1024 fine slots, `fused_matching=True` in the config, which
+   training bypasses) on one 840^2 pair whose image 1 is image 0 with its
+   halves moved 8 and 24 px, with 20000 labels: 3 warm-up and 5 timed
+   steps; ms per step, pairs/s, peak memory, forward / loss / backward /
+   optimizer ms and peak memory (CUDA events), busy share (profiler), each
+   step's losses finite; no kernel launch asserted;
+18. the training step on the card against the CPU: same weights, batch
+   (2 pairs at 128 px, 512 labels) and GT-padding draws, in float64 and in
+   float32: losses, every gradient leaf, the parameters after the update
+   and the BatchNorm statistics agree;
+19. the training loop on the card: the CLI's `train_loop` on in-memory
+   batches, 4 steps at 256 px with a save at 2, then a resume from the
+   step-2 checkpoint to 4 that equals the uninterrupted run (torch's
+   deterministic mode); `Matcher.from_checkpoint` loads the result and
+   matches a pair; one step under a one-process NCCL group equals the same
+   step without a group.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}.
@@ -95,6 +112,7 @@ is not beside the script.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -167,6 +185,21 @@ POSE_MAX_DEG, POSE_DIFF_DEG, MASK_AGREE = 2.0, 0.5, 0.99
 LG_BATCH, LG_ZEB_PAIRS = 16, 16
 LG_CHECK_IMG, LG_CHECK_KPTS = 320, 256
 LG_AGREE, LG_TOL = 0.99, 1e-3
+# gim_loftr's training (gim_tpu/cli/train.py's operating point): float32,
+# TF32 off, 1024 fine slots, one pair of 840^2 images with 20000 labels
+TRAIN_IMG, TRAIN_MATCHES, TRAIN_LABELS = 840, 1024, 20000
+TRAIN_WARMUP, TRAIN_STEPS = 3, 5
+# training card against CPU (phase 18): 2 pairs at 128 px, 64 slots, 512
+# labels, in float64 and in float32 at tests/test_torch_train_step.py's
+# tolerances (gradient leaf, all leaves; BatchNorm statistics; share of
+# the parameters within 1e-2 lr after the update; losses)
+CHECK_IMG, CHECK_MATCHES, CHECK_LABELS = 128, 64, 512
+CHECK_TOL = {"float64": dict(loss=1e-6, grad=(1e-4, 1e-4), stats=1e-6,
+                             share=0.999),
+             "float32": dict(loss=1e-4, grad=(5e-2, 3e-2), stats=1e-4,
+                             share=0.98)}
+# the training loop (phase 19): 4 steps at 256 px with a save at 2
+LOOP_IMG, LOOP_MATCHES, LOOP_LABELS, LOOP_STEPS = 256, 256, 2048, 4
 
 
 def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
@@ -704,6 +737,47 @@ class Smoke:
               f"{peak / 2**30:.2f} GiB [{self.card}]")
         self.stages(m, batches[1])
         self.profile(lambda: m.match(*batches[2]))
+        self.upsample_forms(m, batches)
+
+    def upsample_forms(self, m, batches):
+        """`m.match` on this phase's batches with the FPN's upsampling as
+        the port runs it (two products with interpolation operators,
+        `backbone.upsample2x`, the JAX package's form) and with
+        F.interpolate's bilinear kernel in its place, in the order port,
+        interpolate, interpolate, port (a warm-up call before each): the
+        measurement behind the port's one form."""
+        import torch
+        import torch.nn.functional as F
+
+        from gim_tpu_torch.models.loftr import backbone as BB
+
+        port = BB.upsample2x
+
+        def interpolate(x):
+            return F.interpolate(x, scale_factor=2, mode="bilinear",
+                                 align_corners=True)
+
+        times = {"matmul": [], "interpolate": []}
+        try:
+            for form in ("matmul", "interpolate", "interpolate", "matmul"):
+                BB.upsample2x = port if form == "matmul" else interpolate
+                m.match(*batches[0])
+                torch.cuda.synchronize()
+                for a, b in batches:
+                    t0 = time.perf_counter()
+                    m.match(a, b)
+                    torch.cuda.synchronize()
+                    times[form].append(time.perf_counter() - t0)
+        finally:
+            BB.upsample2x = port
+        med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        print(f"  FPN upsampling, batch {BATCH} x {IMG} px bf16: matrix "
+              f"form (the port's) median {med['matmul']:.2f} ms per batch "
+              f"(runs {[round(t * 1e3, 2) for t in times['matmul']]}), "
+              f"F.interpolate {med['interpolate']:.2f} ms (runs "
+              f"{[round(t * 1e3, 2) for t in times['interpolate']]}), "
+              f"ratio {med['matmul'] / med['interpolate']:.4f} "
+              f"[{self.card}]")
 
     def timed_call(self, m, args, mods):
         """One `m.match(*args)` with a CUDA event recorded where each of
@@ -766,7 +840,13 @@ class Smoke:
     def profile(self, fn, top: int = 20):
         """Device time by kernel for one `fn()`. Informational: a profiler
         that cannot trace the card is reported, not a failed phase.
-        Returns (device launches, device ms, window ms), or None."""
+
+        The busy share is the union of the device activities' intervals
+        (kernels, copies, sets; not the profiler's annotation ranges) over
+        the host window, so time where two of them run at once counts
+        once. Printed beside it: the plain sum of their times, the part of
+        it that overlaps another activity, and the activities per stream.
+        Returns (device launches, busy device ms, window ms), or None."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -779,26 +859,41 @@ class Smoke:
                 fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            acts = sorted((e.start_ns(), e.end_ns(), e.device_resource_id())
+                          for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == DeviceType.CUDA
+                          and not e.is_user_annotation()
+                          and e.end_ns() > e.start_ns())
             rows = []   # kernels only: operator rows repeat their time
             for e in prof.key_averages():
                 t = e.self_device_time_total
-                if e.device_type == DeviceType.CUDA and t > 0:
+                if (e.device_type == DeviceType.CUDA and t > 0
+                        and not getattr(e, "is_user_annotation", False)):
                     rows.append((t, e.key, e.count))
         except Exception as e:  # noqa: BLE001
             print(f"  profile: not measured ({type(e).__name__}: {e})")
             return None
-        if not rows:
+        if not acts:
             print("  profile: not measured (the profiler saw no device time)")
             return None
+        busy = overlap = total = 0        # ns
+        end = -1
+        streams = collections.Counter()
+        for a, b, stream in acts:
+            total += b - a
+            overlap += max(min(b, end) - a, 0)
+            busy += max(b - max(a, end), 0)
+            end = max(end, b)
+            streams[stream] += 1
         rows.sort(reverse=True)
-        total = sum(t for t, _, _ in rows)
-        launches = sum(n for _, _, n in rows)
-        print(f"  profile: {launches} device launches, kernels "
-              f"{total / 1e3:.2f} ms in a {wall * 1e3:.2f} ms window, busy "
-              f"share {total / 1e6 / wall:.3f} [{self.card}]")
+        print(f"  profile: {len(acts)} device activities, busy "
+              f"{busy / 1e6:.2f} ms in a {wall * 1e3:.2f} ms window, busy "
+              f"share {busy / 1e9 / wall:.3f}; their times sum to "
+              f"{total / 1e6:.2f} ms, of which {overlap / 1e6:.2f} ms "
+              f"overlap another; per stream {dict(streams)} [{self.card}]")
         for t, key, n in rows[:top]:
             print(f"    {t / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
-        return launches, total / 1e3, wall * 1e3
+        return len(acts), busy / 1e6, wall * 1e3
 
     # -- 5 ------------------------------------------------------------------
     def fused_vs_dense(self):
@@ -1827,6 +1922,264 @@ class Smoke:
         assert len(det["R_errs"]) == LG_ZEB_PAIRS == n
         assert sum(n_valid) > 0
 
+    # -- 17-19: gim_loftr training -----------------------------------------
+    def train_main_path(self):
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.cli.train import Trainer
+        from gim_tpu_torch.config import GimConfig, LoFTRConfig
+
+        dev = torch.device(self.dev)
+        cfg = GimConfig(loftr=LoFTRConfig(max_matches=TRAIN_MATCHES,
+                                          fused_matching=True))
+        S = TRAIN_IMG
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            tr = Trainer(cfg, 1, 1, 1000, dev)
+            print(f"  trainer built in {time.perf_counter() - t0:.1f} s")
+            batch = train_batch(np.random.default_rng(17), 1, S,
+                                TRAIN_LABELS, dev)
+            self.kernel_counts(reset=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+                t0 = time.perf_counter()
+                try:
+                    logs = tr.step(batch)
+                except torch.cuda.OutOfMemoryError:
+                    print(f"  step {i + 1} does not fit in the card's "
+                          f"memory:\n{torch.cuda.memory_summary()}")
+                    raise
+                torch.cuda.synchronize()
+                if i >= TRAIN_WARMUP:
+                    times.append(time.perf_counter() - t0)
+                losses.append({k: float(v) for k, v in logs.items()})
+            peak = torch.cuda.max_memory_allocated()
+            counts = self.kernel_counts()
+            for i, l in enumerate(losses):
+                print(f"    step {i + 1}: loss {l['loss']:.6f} loss_c "
+                      f"{l['loss_c']:.6f} loss_f {l['loss_f']:.6f}")
+            assert all(np.isfinite(list(l.values())).all() for l in losses)
+            print(f"  kernel launches over {len(losses)} steps: {counts}")
+            assert not any(counts.values()), counts
+            ms = statistics.median(times) * 1e3
+            print(f"  training step, 1 pair of {S}^2, float32, TF32 off, "
+                  f"{TRAIN_MATCHES} fine slots, {TRAIN_LABELS} labels: "
+                  f"median {ms:.2f} ms per step (runs "
+                  f"{[round(t * 1e3, 2) for t in times]}), "
+                  f"{1e3 / ms:.4f} training pairs/s, peak memory "
+                  f"{peak / 2**30:.2f} GiB [{self.card}]")
+            self.train_stages(tr, batch)
+            self.profile(lambda: tr.step(batch))
+
+    def train_stages(self, tr, batch):
+        """One step through the pieces `train.loop.loftr_train_step` is
+        made of, with CUDA events and the peak memory of each stage:
+        forward (the model, to its forward hook), loss (GT and losses),
+        backward (`loop.backward`), optimizer (the clipped AdamW step and
+        the schedule). Then the device's kernels in the forward and loss
+        alone: which convolution algorithms cuDNN runs."""
+        import torch
+
+        from gim_tpu_torch.train import loop
+
+        model, opt = tr.model, tr.optimizer
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "forward", "loss", "backward", "optimizer")}
+        peaks = {}
+
+        def end(stage):
+            ev[stage].record()
+            peaks[stage] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+        h = model.register_forward_hook(lambda *_: end("forward"))
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            opt.zero_grad(set_to_none=False)
+            ev["start"].record()
+            loss, _ = loop.loftr_loss(model, batch)
+            end("loss")
+            loop.backward(loss, opt)
+            end("backward")
+            opt.step()
+            tr.scheduler.step()
+            end("optimizer")
+            torch.cuda.synchronize()
+        finally:
+            h.remove()
+        tr.step_count += 1
+        total = ev["start"].elapsed_time(ev["optimizer"])
+        print(f"  stages of one training step, {total:.2f} ms on the "
+              f"stream, peak memory per stage above the "
+              f"{base / 2**30:.2f} GiB held between steps [{self.card}]:")
+        prev = "start"
+        for k in ("forward", "loss", "backward", "optimizer"):
+            t = ev[prev].elapsed_time(ev[k])
+            print(f"    {t:9.3f} ms  {t / total:6.3f}  {k:10s} peak "
+                  f"{peaks[k] / 2**30:6.2f} GiB")
+            prev = k
+        print(f"  forward and loss alone (cuDNN {torch.backends.cudnn.version()}"
+              f", benchmark {torch.backends.cudnn.benchmark}):")
+        self.profile(lambda: loop.loftr_loss(model, batch), top=12)
+
+    def train_card_vs_cpu(self):
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.config import LoFTRConfig, TrainerConfig
+        from gim_tpu_torch.models.common import init_weights
+        from gim_tpu_torch.models.loftr.model import padding_draws
+        from gim_tpu_torch.train import loop
+
+        cfg = LoFTRConfig(max_matches=CHECK_MATCHES)
+        tcfg = TrainerConfig(canonical_bs=2, canonical_lr=1e-3,
+                             warmup_steps=1)
+        base = init_weights(loop.build_train_model(cfg),
+                            torch.Generator().manual_seed(18))
+        batch = train_batch(np.random.default_rng(18), 2, CHECK_IMG,
+                            CHECK_LABELS, "cpu")
+        uniform, gumbel = padding_draws(2, CHECK_MATCHES, CHECK_LABELS,
+                                        "cpu")
+
+        def run(dev, dtype):
+            model = loop.build_train_model(cfg)
+            model.load_state_dict(base.state_dict())
+            model.to(device=dev, dtype=dtype)
+            opt, sched = loop.make_optimizer(model.parameters(), tcfg, 1, 2,
+                                             100)
+            lr = sched.get_last_lr()[0]
+            b = {k: v.to(dev, dtype if k.startswith("color") else None)
+                 for k, v in batch.items()}
+            with torch.enable_grad():
+                logs = loop.loftr_train_step(model, opt, sched, b,
+                                             uniform.to(dev, dtype),
+                                             gumbel.to(dev, dtype))
+            cpu = {k: v.detach().double().cpu()
+                   for k, v in model.state_dict().items()}
+            grads = {k: p.grad.double().cpu()
+                     for k, p in model.named_parameters()}
+            return {k: float(v) for k, v in logs.items()}, grads, cpu, lr
+
+        for name, dtype in (("float64", torch.float64),
+                            ("float32", torch.float32)):
+            tol = CHECK_TOL[name]
+            (lc, gc, sc, lr), (lg, gg, sg, _) = (run("cpu", dtype),
+                                                 run(self.dev, dtype))
+            rel = {k: abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc}
+            gerr = {k: float((gg[k] - gc[k]).norm() / gc[k].norm())
+                    for k in gc}
+            worst = max(gerr, key=gerr.get)
+            gall = float(torch.sqrt(sum((gg[k] - gc[k]).square().sum()
+                                        for k in gc)
+                                    / sum(gc[k].square().sum() for k in gc)))
+            stats = max(float((sg[k] - sc[k]).abs().max()
+                              / sc[k].abs().max())
+                        for k in sc if k.endswith(("running_mean",
+                                                   "running_var")))
+            d = torch.cat([(sg[k] - sc[k]).abs().ravel() for k in gc])
+            share = float((d <= 1e-2 * lr).double().mean())
+            print(f"  {name}, 2 pairs at {CHECK_IMG} px: losses card "
+                  f"{lg['loss']:.8f} / CPU {lc['loss']:.8f} (worst rel "
+                  f"{max(rel.values()):.2e}, limit {tol['loss']}); gradient "
+                  f"worst leaf {gerr[worst]:.2e} ({worst}), all {gall:.2e} "
+                  f"(limits {tol['grad']}); BatchNorm statistics "
+                  f"{stats:.2e} of max (limit {tol['stats']}); parameters "
+                  f"after the update within 1e-2 lr: {share:.5f} (limit "
+                  f"{tol['share']}), max {float(d.max()) / lr:.4f} lr")
+            assert max(rel.values()) <= tol["loss"]
+            assert gerr[worst] <= tol["grad"][0] and gall <= tol["grad"][1]
+            assert stats <= tol["stats"]
+            assert share >= tol["share"] and float(d.max()) <= 2 * lr
+
+    def train_loop_and_checkpoints(self):
+        import tempfile
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.cli.train import Trainer, train_loop
+        from gim_tpu_torch.config import GimConfig, LoFTRConfig
+        from gim_tpu_torch.weights import port
+
+        dev = torch.device(self.dev)
+        cfg = GimConfig(loftr=LoFTRConfig(max_matches=LOOP_MATCHES))
+        rng = np.random.default_rng(19)
+        batches = [train_batch(rng, 1, LOOP_IMG, LOOP_LABELS, dev)
+                   for _ in range(LOOP_STEPS)]
+
+        def trainer(seed):
+            return Trainer(cfg, 1, 1, 100, dev,
+                           torch.Generator().manual_seed(seed))
+
+        def state(tr):
+            return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+                    {i: {k: v.clone() for k, v in st.items()}
+                     for i, st in tr.optimizer.state_dict()["state"].items()},
+                    tr.scheduler.state_dict()["last_epoch"], tr.step_count)
+
+        def assert_equal(a, b, what):
+            diff = max([float((a[0][k].double() - b[0][k].double()).abs()
+                              .max()) for k in a[0]]
+                       + [float((a[1][i][k].double() - b[1][i][k].double())
+                                .abs().max())
+                          for i in a[1] for k in a[1][i]])
+            print(f"  {what}: largest difference {diff:.3g}, scheduler "
+                  f"{a[2]} / {b[2]}, steps {a[3]} / {b[3]}")
+            assert diff == 0.0 and a[2:] == b[2:], what
+
+        with tempfile.TemporaryDirectory() as d, deterministic() as warned, \
+                torch.enable_grad():
+            da, db = os.path.join(d, "a"), os.path.join(d, "b")
+            a = trainer(0)
+            la = train_loop(a, iter(batches), LOOP_STEPS, ckpt_dir=da,
+                            save_interval=2, log_interval=1)
+            print(f"  uninterrupted: {sorted(os.listdir(da))}")
+            b = trainer(1)            # other weights: the load must set all
+            b.load(os.path.join(da, port.checkpoint_name(2)))
+            lb = train_loop(b, iter(batches[2:]), LOOP_STEPS, ckpt_dir=db,
+                            save_interval=2, log_interval=1)
+            assert la[2:] == lb, (la[2:], lb)
+            assert_equal(state(a), state(b), "resumed from step 2 against "
+                         "the uninterrupted run at step 4")
+
+            m = Matcher.from_checkpoint("gim_loftr", da, cfg, device=dev)
+            for k, v in m.model.state_dict().items():
+                assert torch.equal(v, a.model.state_dict()[k]), k
+            with torch.no_grad():
+                r = m.match(batches[0]["color0"], batches[0]["color1"])
+            assert torch.isfinite(r.kpts1).all() and r.kpts1.shape == (
+                1, LOOP_MATCHES, 2)
+            print(f"  Matcher.from_checkpoint on the card: "
+                  f"{int(r.valid.sum())} valid matches of {LOOP_MATCHES}")
+
+            ckpt = os.path.join(da, port.checkpoint_name(2))
+            plain = trainer(2)
+            plain.load(ckpt)
+            lp = plain.step(batches[2])
+            dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                    f"{free_port()}", rank=0, world_size=1)
+            try:
+                grouped = trainer(3)
+                grouped.load(ckpt)
+                lg = grouped.step(batches[2])
+            finally:
+                dist.destroy_process_group()
+            assert {k: float(v) for k, v in lp.items()} == {
+                k: float(v) for k, v in lg.items()}, (lp, lg)
+            assert_equal(state(plain), state(grouped), "one step under a "
+                         "one-process NCCL group against no group")
+        notes = sorted({str(w.message).splitlines()[0][:160]
+                        for w in warned})
+        for n in notes:
+            print(f"  deterministic mode: {n}")
+
 
 def stack_batches(batches: list[dict]) -> dict:
     """One batch of the pairs of `batches` (each a `zeb_batch`)."""
@@ -1898,6 +2251,62 @@ def zeb_batch(rng, i: int) -> dict:
             "covisible0": [0.5], "covisible1": [0.5]}
 
 
+def train_batch(rng, B: int, S: int, n_labels: int, device) -> dict:
+    """B training pairs of S^2 blocky texture: image 1 is image 0 with its
+    left half moved 8 px and its right half 24 px (phase 13's two planes),
+    and n_labels labels whose both ends lie inside the images."""
+    import numpy as np
+    import torch
+
+    half = S // 2
+    c0 = np.repeat(np.repeat(rng.random((B, 3, S // 4 + 1, S // 4 + 1)), 4,
+                             2), 4, 3)[:, :, :S, :S].astype(np.float32)
+    c1 = np.zeros_like(c0)
+    c1[..., 8:half] = c0[..., :half - 8]
+    c1[..., half + 24:] = c0[..., half:S - 24]
+    left = rng.random((B, n_labels)) < (half - 8) / (S - 32)
+    x0 = np.where(left, rng.uniform(0, half - 8, (B, n_labels)),
+                  rng.uniform(half, S - 24, (B, n_labels)))
+    y0 = rng.uniform(0, S, (B, n_labels))
+    x1 = x0 + np.where(left, 8.0, 24.0)
+    labels = np.stack([x0, y0, x1, y0], -1).astype(np.float32)
+    valid = np.ones((B, n_labels), bool)
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            (("color0", c0), ("color1", c1), ("labels", labels),
+             ("label_valid", valid))}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warnings recorded and yielded, not
+    raised) and cuDNN's deterministic convolutions, restored after."""
+    import warnings
+
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            yield warned
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic = old[2]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     try:
         import torch
@@ -1918,7 +2327,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    torch.set_grad_enabled(False)        # inference only
+    torch.set_grad_enabled(False)   # inference; phases 17-19 enable it
     t0 = time.perf_counter()
     s = Smoke()
     s.phase("1 environment", s.environment)
@@ -1940,6 +2349,10 @@ def main() -> int:
         s.phase("15 gim_lightglue card against CPU",
                 s.lightglue_card_vs_cpu)
         s.phase("16 gim_lightglue ZEB path", s.lightglue_zeb_path)
+        s.phase("17 gim_loftr training step", s.train_main_path)
+        s.phase("18 training card against CPU", s.train_card_vs_cpu)
+        s.phase("19 training loop and checkpoints",
+                s.train_loop_and_checkpoints)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

@@ -135,11 +135,17 @@ class Matcher:
         early-exit heads dropped, `weights/port.py`). gim_roma also
         loads `dinov2_vitl14_pretrain.pth` from the checkpoint's directory
         where it is (gim_tpu/api.py:103-110); without it the trunk keeps
-        seeded random weights."""
+        seeded random weights. `ckpt_path` may also be a directory of the
+        training CLI's checkpoints (`cli/train.py`), of which the latest
+        step loads."""
         _check_name(name)
         resolve_device(device)
         if name == "root_sift":
             raise NotImplementedError(f"{name} has no checkpoint")
+        path = port.latest_checkpoint(ckpt_path)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
+        ckpt_path = path
         raw = port.load_torch_state_dict(ckpt_path)
         if name == "gim_roma":
             side = os.path.join(os.path.dirname(ckpt_path),

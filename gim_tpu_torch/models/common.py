@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gim_tpu_torch.parallel import mesh
+
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -53,12 +55,55 @@ def conv(mod: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
                     mod.stride, mod.padding, mod.dilation, mod.groups)
 
 
-def batchnorm(mod: nn.BatchNorm2d, x: torch.Tensor,
-              dt: torch.dtype) -> torch.Tensor:
-    """flax BatchNorm(use_running_average=True, dtype=dt) on NCHW: float32
-    statistics and affine parameters, output in dt."""
+def batchnorm(mod: nn.BatchNorm2d, x: torch.Tensor, dt: torch.dtype,
+              train: bool = False) -> torch.Tensor:
+    """flax BatchNorm(use_running_average=not train, dtype=dt) on NCHW:
+    float32 statistics and affine parameters, output in dt. With `train`,
+    the batch's statistics (`batchnorm_train`)."""
+    if train:
+        return batchnorm_train(mod, x, dt)
     return F.batch_norm(x.to(dt), mod.running_mean, mod.running_var,
                         mod.weight, mod.bias, False, 0.0, mod.eps)
+
+
+def batchnorm_train(mod: nn.BatchNorm2d, x: torch.Tensor, dt: torch.dtype
+                    ) -> torch.Tensor:
+    """flax BatchNorm(use_running_average=False, momentum=0.9) on NCHW, the
+    JAX package's every BatchNorm.
+
+    The statistics are float32 (or the input's wider type) over N*H*W per
+    channel with flax's fast
+    variance, var = max(E[x^2] - E[x]^2, 0). The running statistics move
+    by `r <- 0.9 r + 0.1 batch`, with the *biased* batch variance, as flax
+    does; `F.batch_norm(training=True)` and `nn.SyncBatchNorm` update with
+    the unbiased one, so neither is used.
+
+    Under a process group (`parallel.mesh.in_group`), each channel's sums
+    of x and x^2 and the count are all-reduced through
+    `torch.distributed.nn.functional.all_reduce`, whose backward sums the
+    gradients too: the statistics, and their gradient, are those of the
+    global batch (the JAX loop's BatchNorm under jit sharding).
+    """
+    # at least float32, as flax promotes (a float64 input stays float64)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = torch.tensor(float(xf.numel() // xf.shape[1]), dtype=xf.dtype,
+                     device=x.device)
+    s1 = xf.sum((0, 2, 3))
+    s2 = xf.square().sum((0, 2, 3))
+    if mesh.in_group():
+        from torch.distributed.nn.functional import all_reduce
+
+        s = all_reduce(torch.cat([s1, s2, n[None]]))
+        s1, s2, n = s[:s1.shape[0]], s[s1.shape[0]:-1], s[-1]
+    mean = s1 / n
+    var = (s2 / n - mean.square()).clamp_min(0.0)
+    with torch.no_grad():
+        mod.running_mean.mul_(0.9).add_(0.1 * mean.to(mod.running_mean.dtype))
+        mod.running_var.mul_(0.9).add_(0.1 * var.to(mod.running_var.dtype))
+    mul = torch.rsqrt(var + mod.eps) * mod.weight.to(xf.dtype)
+    y = (xf - mean[:, None, None]) * mul[:, None, None] \
+        + mod.bias.to(xf.dtype)[:, None, None]
+    return y.to(dt)
 
 
 def layernorm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

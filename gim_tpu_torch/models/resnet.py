@@ -9,9 +9,11 @@ Port of the bottleneck stacks of `gim_tpu/models/loftr/backbone.py`
 Every layer computes in the dtype of its input: parameters stored in
 another dtype are cast at each layer (`models/common.py`), as the JAX
 package does. BatchNorm uses its running statistics (eval; the DKM
-encoder's freeze_bn). The stride-2 1x1 `downsample` conv has no padding,
-which is what flax's SAME gives a 1x1 kernel: on an odd size both sample
-rows 0, 2, ..., so 165 -> 83.
+encoder's freeze_bn) unless `forward` is given `train=True`, which
+threads the switch to every BatchNorm (gim_loftr's training:
+`models/common.batchnorm_train`). The stride-2 1x1 `downsample` conv has
+no padding, which is what flax's SAME gives a 1x1 kernel: on an odd size
+both sample rows 0, 2, ..., so 165 -> 83.
 """
 
 from __future__ import annotations
@@ -51,16 +53,17 @@ class Bottleneck(nn.Module):
                                          _bn(planes * 4))
                            if downsample else None)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt = x.dtype
-        out = F.relu(batchnorm(self.bn1, conv(self.conv1, x, dt), dt))
-        out = F.relu(batchnorm(self.bn2, conv(self.conv2, out, dt), dt))
-        out = batchnorm(self.bn3, conv(self.conv3, out, dt), dt)
+        out = F.relu(batchnorm(self.bn1, conv(self.conv1, x, dt), dt, train))
+        out = F.relu(batchnorm(self.bn2, conv(self.conv2, out, dt), dt,
+                               train))
+        out = batchnorm(self.bn3, conv(self.conv3, out, dt), dt, train)
         if self.downsample is None:
             idn = x
         else:
             idn = batchnorm(self.downsample[1],
-                            conv(self.downsample[0], x, dt), dt)
+                            conv(self.downsample[0], x, dt), dt, train)
         return F.relu(out + idn)
 
 
@@ -89,15 +92,19 @@ class ResNet50(nn.Module):
             cin = planes * 4
         self.num_layers = num_layers
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> list[torch.Tensor]:
         """x: (B, 3, H, W) in the compute dtype. Returns the stem's output
-        (stride 2) and each layer's, in x's dtype."""
+        (stride 2) and each layer's, in x's dtype. `train`: every
+        BatchNorm normalises with the batch's statistics and updates its
+        running ones."""
         dt = x.dtype
-        h = F.relu(batchnorm(self.bn1, conv(self.conv1, x, dt), dt))
+        h = F.relu(batchnorm(self.bn1, conv(self.conv1, x, dt), dt, train))
         outs = [h]
         if self.maxpool:
             h = F.max_pool2d(h, 3, 2, 1)
         for i in range(1, self.num_layers + 1):
-            h = getattr(self, f"layer{i}")(h)
+            for block in getattr(self, f"layer{i}"):
+                h = block(h, train)
             outs.append(h)
         return outs

@@ -25,6 +25,8 @@ dicts, so both packages can run on the same weights.
 
 from __future__ import annotations
 
+import os
+import re
 from collections import OrderedDict
 from collections.abc import Mapping
 
@@ -62,6 +64,41 @@ def loftr_checkpoint_state_dict(sd: dict) -> dict:
             if not k.startswith(LOFTR_DROP)}
 
 
+def write_training_checkpoint(path: str, model: torch.nn.Module,
+                              optimizer, scheduler, step: int) -> None:
+    """A training checkpoint: the model's state dict in the reference
+    layout (under 'state_dict', keys prefixed 'model.', as the reference's
+    Lightning checkpoints hold it, so `loftr_checkpoint_state_dict` and
+    `Matcher.from_checkpoint` read it), plus the optimizer's and
+    scheduler's state and the step count. Written to a temporary file and
+    renamed, so a cut run leaves no partial checkpoint."""
+    sd = {f"model.{k}": v.detach().cpu()
+          for k, v in model.state_dict().items()}
+    tmp = f"{path}.tmp"
+    torch.save({"state_dict": sd, "optimizer": optimizer.state_dict(),
+                "scheduler": scheduler.state_dict(), "step": step}, tmp)
+    os.replace(tmp, path)
+
+
+CKPT_PATTERN = re.compile(r"step_(\d+)\.ckpt$")
+
+
+def checkpoint_name(step: int) -> str:
+    return f"step_{step:08d}.ckpt"
+
+
+def latest_checkpoint(path: str) -> str | None:
+    """`path` if it is a file, else the checkpoint of the largest step in
+    the directory `path` (None if it holds none)."""
+    if os.path.isfile(path):
+        return path
+    if not os.path.isdir(path):
+        return None
+    steps = [(int(m.group(1)), f) for f in os.listdir(path)
+             if (m := CKPT_PATTERN.search(f))]
+    return os.path.join(path, max(steps)[1]) if steps else None
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -79,6 +116,7 @@ class _FromJax:
     def __init__(self, variables: Mapping):
         self.params = _flatten(variables.get("params", {}))
         self.stats = _flatten(variables.get("batch_stats", {}))
+        self.has_stats = "batch_stats" in variables
         self.sd: OrderedDict[str, torch.Tensor] = OrderedDict()
 
     def _put(self, key: str, arr: np.ndarray):
@@ -117,6 +155,8 @@ class _FromJax:
     def batchnorm(self, fpath: str, tkey: str):
         self._put(f"{tkey}.weight", self.params.pop(f"{fpath}/scale"))
         self._put(f"{tkey}.bias", self.params.pop(f"{fpath}/bias"))
+        if not self.has_stats:          # a params-shaped tree
+            return
         self._put(f"{tkey}.running_mean", self.stats.pop(f"{fpath}/mean"))
         self._put(f"{tkey}.running_var", self.stats.pop(f"{fpath}/var"))
         self.sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0)
@@ -157,7 +197,12 @@ def loftr_state_dict_from_jax(variables: Mapping, n_pairs_coarse: int = 4,
                               ) -> OrderedDict[str, torch.Tensor]:
     """JAX LoFTRMatcher variables -> the port's LoFTRMatcher state dict
     (the inverse of `gim_tpu.weights.port.port_loftr`). Raises if a leaf
-    of the tree is left over."""
+    of the tree is left over.
+
+    Any params-shaped tree maps too (gradients, optax's `mu` and `nu`):
+    pass `{"params": tree}`; without "batch_stats" the state dict holds
+    no running statistics, and each leaf sits under its parameter's
+    name."""
     u = _FromJax(variables)
     _trunk_from_jax(u, "backbone/encode", "backbone.encode")
     for name in ("layer3_outconv", "layer2_outconv", "layer1_outconv"):

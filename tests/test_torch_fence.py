@@ -36,6 +36,10 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"gim_tpu_torch/train/loop.py", "gim_tpu_torch/parallel/mesh.py",
+            "gim_tpu_torch/cli/train.py",
+            "gim_tpu_torch/data/walk.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -63,13 +67,19 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["Matcher", "from_checkpoint", "match_fn"])
+@pytest.mark.parametrize("entry", ["Matcher", "from_checkpoint", "match_fn",
+                                   "train_cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
                                                            tmp_path):
     cfg = tconfig.GimConfig(loftr=tconfig.LoFTRConfig(layer_names_c=1))
     x = torch.zeros(1, 3, 64, 64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if entry == "Matcher":
+        if entry == "train_cli":
+            from gim_tpu_torch.cli import train
+
+            train.main(["--labels_root", str(tmp_path),
+                        "--video", str(tmp_path / "v.avi")])
+        elif entry == "Matcher":
             api.Matcher("gim_loftr", cfg)
         elif entry == "from_checkpoint":
             api.Matcher.from_checkpoint("gim_loftr",
