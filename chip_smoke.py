@@ -200,6 +200,24 @@ CHECK_TOL = {"float64": dict(loss=1e-6, grad=(1e-4, 1e-4), stats=1e-6,
                              share=0.98)}
 # the training loop (phase 19): 4 steps at 256 px with a save at 2
 LOOP_IMG, LOOP_MATCHES, LOOP_LABELS, LOOP_STEPS = 256, 256, 2048, 4
+# the later heads' training (phases 20-22) at the JAX CLI's operating points
+# (gim_tpu/cli/train.py:84-117): one pair of gim_dkm at 672^2 (h_resized =
+# w_resized = 672), gim_roma at 672^2 (coarse_res 672, full ViT-L/14) and
+# gim_lightglue at 1024^2 (2048 keypoints forced), 20000 labels each
+HEAD_TRAIN_IMG = {"gim_dkm": 672, "gim_roma": 672, "gim_lightglue": 1024}
+# card against CPU (phase 23): each head at the CPU tests' sizes and
+# tolerances (tests/test_torch_{dkm,roma,lightglue}_train.py: loss rtol,
+# gradient per leaf and over all leaves, running statistics of each leaf's
+# largest magnitude, share of the parameters within 1e-2 lr)
+HEAD_CHECK = {"gim_dkm": (64, 2, 64), "gim_roma": (56, 2, 64),
+              "gim_lightglue": (64, 2, 128)}      # image, pairs, labels
+HEAD_CHECK_TOL = {
+    "gim_dkm": dict(loss=1e-4, grad=(0.5, 3e-2), stats=1e-3, share=0.95),
+    "gim_roma": dict(loss=1e-5, grad=(0.2, 1.5e-2), stats=3e-4, share=0.98),
+    "gim_lightglue": dict(loss=1e-5, grad=(2e-3, 1e-5), stats=0.0,
+                          share=0.999)}
+# the later heads' training loop (phase 24): 4 steps with a save at 2
+HEAD_LOOP_IMG = {"gim_dkm": 256, "gim_roma": 224, "gim_lightglue": 256}
 
 
 def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
@@ -2180,6 +2198,494 @@ class Smoke:
         for n in notes:
             print(f"  deterministic mode: {n}")
 
+    # -- 20-25: the training of gim_dkm, gim_roma and gim_lightglue ---------
+    def head_trainer(self, weight: str, cfg, seed: int | None = None):
+        import torch
+
+        from gim_tpu_torch.cli.train import Trainer
+
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        return Trainer(cfg, 1, 1, 1000, torch.device(self.dev), gen,
+                       weight=weight)
+
+    def head_train_main_path(self, weight: str):
+        """Phases 20-22: the CLI's `Trainer` of `weight` at its operating
+        point (`cli.train.head_config`), float32, TF32 off, one pair with
+        TRAIN_LABELS labels: warm-up and timed steps, ms per step, pairs/s,
+        peak memory, each step's losses finite, no kernel launched; the
+        stage split (`head_train_stages`) and a profile of one step.
+        Returns (trainer, batch)."""
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.cli.train import head_config
+
+        S = HEAD_TRAIN_IMG[weight]
+        cfg = head_config(weight, S)
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            tr = self.head_trainer(weight, cfg)
+            n = sum(p.numel() for p in tr.model.parameters())
+            print(f"  {weight} trainer built in {time.perf_counter() - t0:.1f}"
+                  f" s, {n} parameters, all in the optimizer")
+            batch = train_batch(np.random.default_rng(20), 1, S,
+                                TRAIN_LABELS, self.dev)
+            self.kernel_counts(reset=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+                t0 = time.perf_counter()
+                try:
+                    logs = tr.step(batch)
+                except torch.cuda.OutOfMemoryError:
+                    print(f"  step {i + 1} does not fit in the card's "
+                          f"memory:\n{torch.cuda.memory_summary()}")
+                    raise
+                torch.cuda.synchronize()
+                if i >= TRAIN_WARMUP:
+                    times.append(time.perf_counter() - t0)
+                losses.append({k: float(v) for k, v in logs.items()})
+            peak = torch.cuda.max_memory_allocated()
+            counts = self.kernel_counts()
+            for i, l in enumerate(losses):
+                print(f"    step {i + 1}: " + " ".join(
+                    f"{k} {v:.6f}" for k, v in l.items()))
+            assert all(np.isfinite(list(l.values())).all() for l in losses)
+            print(f"  kernel launches over {len(losses)} steps: {counts}")
+            assert not any(counts.values()), counts
+            ms = statistics.median(times) * 1e3
+            print(f"  {weight} training step, 1 pair of {S}^2, float32, TF32 "
+                  f"off, {TRAIN_LABELS} labels: median {ms:.2f} ms per step "
+                  f"(runs {[round(t * 1e3, 2) for t in times]}), "
+                  f"{1e3 / ms:.4f} training pairs/s, peak memory "
+                  f"{peak / 2**30:.2f} GiB [{self.card}]")
+            self.head_train_stages(tr, batch)
+            self.profile(lambda: tr.step(batch), top=12)
+        return tr, batch
+
+    def head_train_stages(self, tr, batch):
+        """One step of the trainer's head through the pieces its step is
+        made of, with CUDA events and each stage's peak memory. gim_dkm and
+        gim_roma: forward (`train_corresps`, to the decoder's forward
+        hook), loss (`dense_warp_loss`), backward, optimizer.
+        gim_lightglue: SuperPoint's dense forward of both images (to its
+        second forward hook), the sparse stage (NMS, top-k, descriptor
+        sampling; to LightGlue's pre-hook), LightGlue, loss (GT
+        assignment, NLL, detector and descriptor losses), backward,
+        optimizer."""
+        import torch
+
+        from gim_tpu_torch.train import loop
+        from gim_tpu_torch.train.dense_losses import dense_loss
+        from gim_tpu_torch.train.lightglue_loop import lightglue_loss
+
+        model, opt = tr.model, tr.optimizer
+        marks = Marks()
+        hooks = []
+        if tr.weight == "gim_lightglue":
+            sp_calls = []
+
+            def sp_end(*_):
+                sp_calls.append(1)
+                if len(sp_calls) == 2:
+                    marks.end("superpoint")
+
+            hooks = [model["superpoint"].register_forward_hook(sp_end),
+                     model["lightglue"].register_forward_pre_hook(
+                         lambda *_: marks.end("sparse")),
+                     model["lightglue"].register_forward_hook(
+                         lambda *_: marks.end("lightglue"))]
+        else:
+            hooks = [model.decoder.register_forward_hook(
+                lambda *_: marks.end("forward"))]
+        try:
+            opt.zero_grad(set_to_none=False)
+            marks.start()
+            if tr.weight == "gim_lightglue":
+                loss, _ = lightglue_loss(model, tr.cfg, batch)
+            else:
+                loss, _ = dense_loss(model, batch)
+            marks.end("loss")
+            loop.backward(loss, opt)
+            marks.end("backward")
+            opt.step()
+            tr.scheduler.step()
+            marks.end("optimizer")
+        finally:
+            for h in hooks:
+                h.remove()
+        tr.step_count += 1
+        marks.report(f"{tr.weight} training step", self.card)
+
+    def dkm_train_main_path(self):
+        """Phase 20, with GIM_TPU_FUSED_REFINER=1 (and GIM_TPU_FLASH_VIT=1)
+        set: training takes no kernel (the ConvRefiner's gate)."""
+        with switches(True):
+            self.head_train_main_path("gim_dkm")
+
+    def roma_train_main_path(self):
+        """Phase 21 with the switches off; then one step's loss with
+        GIM_TPU_FLASH_VIT=1: K3 runs in DINOv2's 24 blocks (under
+        no_grad) and the coordinate decoder's 5, and the backward raises
+        at the decoder's attention, where JAX's step fails too."""
+        import torch
+
+        from gim_tpu_torch.ops.kernels.forward_only import \
+            KernelBackwardError
+        from gim_tpu_torch.train.dense_losses import dense_loss
+
+        with switches(False):
+            tr, batch = self.head_train_main_path("gim_roma")
+        c = tr.cfg.roma
+        with torch.enable_grad(), env(GIM_TPU_FLASH_VIT="1"):
+            tr.optimizer.zero_grad(set_to_none=False)
+            self.kernel_counts(reset=True)
+            loss, _ = dense_loss(tr.model, batch)
+            torch.cuda.synchronize()
+            counts = self.kernel_counts()
+            print(f"  GIM_TPU_FLASH_VIT=1: loss {float(loss.detach()):.6f}, "
+                  f"kernel "
+                  f"launches in the forward {counts}")
+            assert counts.pop("flash_attention") == (c.dino_depth
+                                                     + c.num_decoder_blocks)
+            assert not any(counts.values()), counts
+            try:
+                loss.backward()
+            except KernelBackwardError as e:
+                print(f"  the backward raises: {e}")
+            else:
+                raise AssertionError("a backward through K3 did not raise")
+
+    def lightglue_train_main_path(self):
+        """Phase 22."""
+        with switches(False):
+            self.head_train_main_path("gim_lightglue")
+
+    @staticmethod
+    def head_check_config(weight: str, dtype: str):
+        """The CPU tests' small configuration of `weight` (tests/
+        test_torch_{dkm,roma,lightglue}_train.py) at full width, dense heads
+        at config dtype `dtype`."""
+        from gim_tpu_torch.cli.train import head_config
+        from gim_tpu_torch.config import replace
+
+        cfg = head_config(weight, HEAD_CHECK[weight][0])
+        if weight == "gim_dkm":
+            return replace(cfg, dkm=replace(cfg.dkm, dtype=dtype))
+        if weight == "gim_roma":
+            return replace(cfg, roma=replace(
+                cfg.roma, coarse_res=56, dino_depth=2, num_decoder_blocks=1,
+                dtype=dtype))
+        return replace(
+            cfg, superpoint=replace(cfg.superpoint, max_num_keypoints=64),
+            lightglue=replace(cfg.lightglue, descriptor_dim=64, n_layers=3,
+                              input_dim=256))
+
+    def head_card_vs_cpu(self):
+        """Phase 23: each head's step on the card against the CPU, same
+        weights and batch, at the CPU tests' sizes; gim_dkm and gim_roma in
+        float64 (config dtype; their float32 pins stay) and float32,
+        gim_lightglue in float32 (its modules have no other dtype, as in
+        the JAX package)."""
+        import re
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.cli.train import build_train_model
+        from gim_tpu_torch.config import TrainerConfig
+        from gim_tpu_torch.models.common import init_weights
+        from gim_tpu_torch.train import loop
+
+        # convolution biases before a train-mode BatchNorm: zero gradient
+        # by construction, rounding on both sides
+        before_bn = re.compile(r"(block1|hidden_blocks\.\d+)\.0\.bias$"
+                               r"|rrb_[du]\.\d+\.conv2\.bias$"
+                               r"|proj\.\d+\.0\.bias$")
+        for weight in HEAD_CHECK:
+            S, B, N = HEAD_CHECK[weight]
+            tol = HEAD_CHECK_TOL[weight]
+            base = init_weights(build_train_model(
+                weight, self.head_check_config(weight, "float32")),
+                torch.Generator().manual_seed(23)).state_dict()
+            batch = train_batch(np.random.default_rng(23), B, S, N, "cpu")
+            tcfg = TrainerConfig(canonical_bs=B, canonical_lr=1e-3,
+                                 warmup_steps=1)
+
+            def run(dev, dtype):
+                tr = self.head_trainer(weight,
+                                       self.head_check_config(weight, dtype))
+                tr.model.load_state_dict(base)
+                tr.model.to(dev)
+                tr.optimizer, tr.scheduler = loop.make_optimizer(
+                    tr.model.parameters(), tcfg, 1, B, 100)
+                lr = tr.scheduler.get_last_lr()[0]
+                with torch.enable_grad():
+                    logs = tr.step({k: v.to(dev) for k, v in batch.items()})
+                return ({k: float(v) for k, v in logs.items()},
+                        {k: p.grad.double().cpu()
+                         for k, p in tr.model.named_parameters()},
+                        {k: v.double().cpu()
+                         for k, v in tr.model.state_dict().items()}, lr)
+
+            dtypes = (("float32",) if weight == "gim_lightglue"
+                      else ("float64", "float32"))
+            for dtype in dtypes:
+                t0 = time.perf_counter()
+                lc, gc, sc, lr = run("cpu", dtype)
+                t1 = time.perf_counter()
+                lg, gg, sg, _ = run(self.dev, dtype)
+                print(f"  {weight} {dtype}: CPU step {t1 - t0:.1f} s, card "
+                      f"step {time.perf_counter() - t1:.1f} s (host clock, "
+                      f"build included)")
+                rel = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc
+                          if lc[k])
+                total = float(torch.sqrt(sum(g.square().sum()
+                                             for g in gc.values())))
+                nil = [k for k in gc if before_bn.search(k)]
+                nil_size = max([float(gg[k].norm()) / total for k in nil],
+                               default=0.0)
+                keep = [k for k in gc if k not in nil]
+                gerr = {k: float((gg[k] - gc[k]).norm() / gc[k].norm())
+                        if gc[k].any() else float(gg[k].norm())
+                        for k in keep}
+                worst = max(gerr, key=gerr.get)
+                gall = float(torch.sqrt(
+                    sum((gg[k] - gc[k]).square().sum() for k in keep)
+                    / sum(gc[k].square().sum() for k in keep)))
+                # a statistic that stays at zero (an encoder's in eval)
+                # counts as agreeing when both sides hold zero
+                stats = max([float((sg[k] - sc[k]).abs().max()
+                                   / sc[k].abs().max().clamp_min(1e-30))
+                             for k in sc if k.endswith(("running_mean",
+                                                        "running_var"))],
+                            default=0.0)
+                d = torch.cat([(sg[k] - sc[k]).abs().ravel() for k in gc])
+                share = float((d <= 1e-2 * lr).double().mean())
+                print(f"  {weight} {dtype}, {B} pairs at {S} px: loss card "
+                      f"{lg['loss']:.8f} / CPU {lc['loss']:.8f} (worst rel "
+                      f"{rel:.2e}, limit {tol['loss']}); gradient worst leaf "
+                      f"{gerr[worst]:.2e} ({worst}), all {gall:.2e} (limits "
+                      f"{tol['grad']}), {len(nil)} zero by construction up "
+                      f"to {nil_size:.1e} of the whole; statistics "
+                      f"{stats:.2e} (limit {tol['stats']}); parameters "
+                      f"within 1e-2 lr {share:.5f} (limit {tol['share']}), "
+                      f"max {float(d.max()) / lr:.4f} lr")
+                assert rel <= tol["loss"]
+                assert gerr[worst] <= tol["grad"][0]
+                assert gall <= tol["grad"][1] and nil_size < 1e-4
+                assert stats <= tol["stats"]
+                assert share >= tol["share"] and float(d.max()) <= 2 * lr
+
+    def head_train_loop(self):
+        """Phase 24: the CLI's `train_loop` for each head on in-memory
+        batches (HEAD_LOOP_IMG; gim_roma's coarse_res cut to 224 and its
+        DINOv2 to 2 blocks, whose seeded weights take seconds to draw on
+        the host, full depth being phase 21's): 4 steps
+        with a save at 2; a trainer of other weights loads the step-2
+        checkpoint and holds exactly the uninterrupted run's step-2 state,
+        then runs to 4 (torch's deterministic mode; the largest difference
+        from the uninterrupted run printed, the losses within rtol 1e-3);
+        `Matcher.from_checkpoint` loads the step-4 file and matches a
+        pair."""
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.cli.train import head_config, train_loop
+        from gim_tpu_torch.config import replace
+        from gim_tpu_torch.weights import port
+
+        def state(tr):
+            return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+                    {i: {k: v.clone() for k, v in st.items()}
+                     for i, st in tr.optimizer.state_dict()["state"].items()},
+                    tr.scheduler.state_dict()["last_epoch"], tr.step_count)
+
+        def largest_diff(a, b):
+            return max([float((a[0][k].double() - b[0][k].double()).abs()
+                              .max()) for k in a[0]]
+                       + [float((a[1][i][k].double() - b[1][i][k].double())
+                                .abs().max())
+                          for i in a[1] for k in a[1][i]])
+
+        for weight, S in HEAD_LOOP_IMG.items():
+            cfg = head_config(weight, S)
+            if weight == "gim_roma":       # the loop, not the trunk's depth
+                cfg = replace(cfg, roma=replace(cfg.roma, coarse_res=S,
+                                                dino_depth=2))
+            rng = np.random.default_rng(24)
+            batches = [train_batch(rng, 1, S, LOOP_LABELS, self.dev)
+                       for _ in range(LOOP_STEPS)]
+            with tempfile.TemporaryDirectory() as d, \
+                    deterministic() as warned, torch.enable_grad(), \
+                    switches(False):
+                a = self.head_trainer(weight, cfg, 0)
+                la = train_loop(a, iter(batches), 2, ckpt_dir=d,
+                                save_interval=2, log_interval=1)
+                at2 = state(a)
+                la += train_loop(a, iter(batches[2:]), LOOP_STEPS,
+                                 ckpt_dir=d, save_interval=2, log_interval=1)
+                b = self.head_trainer(weight, cfg, 1)
+                b.load(os.path.join(d, port.checkpoint_name(2)))
+                diff = largest_diff(state(b), at2)
+                assert diff == 0.0 and state(b)[2:] == at2[2:], diff
+                lb = train_loop(b, iter(batches[2:]), LOOP_STEPS,
+                                log_interval=1)
+                after = largest_diff(state(a), state(b))
+                worst = max(abs(x["loss"] - y["loss"]) / abs(x["loss"])
+                            for x, y in zip(la[2:], lb))
+                print(f"  {weight} at {S} px: {sorted(os.listdir(d))}; the "
+                      f"step-2 checkpoint restores the run's state exactly; "
+                      f"resumed to step {b.step_count}: losses "
+                      f"{[round(x['loss'], 6) for x in lb]} against "
+                      f"{[round(x['loss'], 6) for x in la[2:]]} (worst rel "
+                      f"{worst:.2e}), largest state difference {after:.3g}"
+                      f"{' (bit for bit)' if after == 0 else ''}")
+                assert worst <= 1e-3, worst
+                m = Matcher.from_checkpoint(weight, d, cfg, device=self.dev)
+                sd = a.model.state_dict()
+                for k, v in m.model.state_dict().items():
+                    assert torch.equal(v, sd[k]), k
+                with torch.no_grad():
+                    r = m.match(batches[0]["color0"], batches[0]["color1"])
+                assert (torch.isfinite(r.kpts0).all()
+                        and torch.isfinite(r.kpts1).all())
+                print(f"  Matcher.from_checkpoint({weight}) on the card: "
+                      f"{int(r.valid.sum())} valid matches of "
+                      f"{r.valid.shape[1]}")
+            notes = sorted({str(w.message).splitlines()[0][:160]
+                            for w in warned})
+            for n in notes:
+                print(f"  deterministic mode: {n}")
+
+    def kernels_refuse_backward(self):
+        """Phase 25: K1 (dual_softmax_mutual), K2 (fused_dw_block) and K3
+        (flash_sdpa) on the card with inputs that require a gradient: the
+        forward agrees with the plain version (K1: indices on >= 99.9 % of
+        rows and conf within TOL_F32; K2, K3 within TOL_F32 and
+        TOL_ATTN_F32 of the largest magnitude) and `.backward()` raises
+        `KernelBackwardError` naming the kernel, leaving no gradient."""
+        import torch
+
+        from gim_tpu_torch.ops.kernels import dsmax, flash, refiner
+        from gim_tpu_torch.ops.kernels.forward_only import \
+            KernelBackwardError
+
+        dev = self.dev
+        g = torch.Generator(device=dev).manual_seed(25)
+
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=g, device=dev)
+                    ).requires_grad_()
+
+        cases = {
+            "dual_softmax_mutual": (dsmax.dual_softmax_mutual,
+                                    dsmax.dual_softmax_mutual_plain,
+                                    (rand(2, 1000, 256, scale=0.06),
+                                     rand(2, 1300, 256, scale=0.06)),
+                                    (0.1,)),
+            "refiner_block": (refiner.fused_dw_block,
+                              refiner.fused_dw_block_plain,
+                              (rand(2, 144, 64, 80), rand(144, 25, scale=0.2),
+                               rand(144), rand(144, 144, scale=0.08),
+                               rand(144)), ()),
+            "flash_attention": (flash.flash_sdpa, flash.flash_sdpa_plain,
+                                (rand(2, 8, 577, 64), rand(2, 8, 577, 64),
+                                 rand(2, 8, 577, 64)), ()),
+        }
+        for name, (kernel, plain, tensors, rest) in cases.items():
+            with torch.enable_grad():
+                got = kernel(*tensors, *rest)
+            with torch.no_grad():
+                want = plain(*(t.detach() for t in tensors), *rest)
+            if name == "dual_softmax_mutual":
+                agree = float((got[0] == want[0]).double().mean())
+                err = float((got[1].detach() - want[1]).abs().max())
+                out = got[1]
+                print(f"  {name}: indices agree on {agree:.5f} of rows, conf "
+                      f"within {err:.2e}")
+                assert agree >= MIN_AGREE and err <= TOL_F32
+            else:
+                err = float((got.detach() - want).abs().max()
+                            / want.abs().max())
+                out = got
+                print(f"  {name}: within {err:.2e} of the plain version's "
+                      f"largest magnitude")
+                assert err <= (TOL_F32 if name == "refiner_block"
+                               else TOL_ATTN_F32)
+            assert out.requires_grad
+            try:
+                with torch.enable_grad():
+                    out.sum().backward()
+            except KernelBackwardError as e:
+                assert name in str(e), e
+                print(f"    backward raises: {e}")
+            else:
+                raise AssertionError(f"a backward through {name} did not "
+                                     "raise")
+            assert all(t.grad is None for t in tensors)
+
+
+class Marks:
+    """CUDA events at the ends of a step's stages, with each stage's peak
+    memory above what was held at the start."""
+
+    def __init__(self):
+        self.names, self.events, self.peaks = [], [], []
+
+    def start(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.first = torch.cuda.Event(enable_timing=True)
+        self.first.record()
+
+    def end(self, name: str):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.names.append(name)
+        self.events.append(ev)
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def report(self, what: str, card: str):
+        import torch
+
+        torch.cuda.synchronize()
+        total = self.first.elapsed_time(self.events[-1])
+        print(f"  stages of one {what}, {total:.2f} ms on the stream, peak "
+              f"memory per stage above the {self.base / 2**30:.2f} GiB held "
+              f"at its start [{card}]:")
+        prev = self.first
+        for name, ev, peak in zip(self.names, self.events, self.peaks):
+            t = prev.elapsed_time(ev)
+            print(f"    {t:9.3f} ms  {t / total:6.3f}  {name:11s} peak "
+                  f"{(peak - self.base) / 2**30:6.2f} GiB")
+            prev = ev
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
 
 def stack_batches(batches: list[dict]) -> dict:
     """One batch of the pairs of `batches` (each a `zeb_batch`)."""
@@ -2327,7 +2833,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    torch.set_grad_enabled(False)   # inference; phases 17-19 enable it
+    torch.set_grad_enabled(False)   # inference; phases 17-25 enable it
     t0 = time.perf_counter()
     s = Smoke()
     s.phase("1 environment", s.environment)
@@ -2353,6 +2859,16 @@ def main() -> int:
         s.phase("18 training card against CPU", s.train_card_vs_cpu)
         s.phase("19 training loop and checkpoints",
                 s.train_loop_and_checkpoints)
+        s.phase("20 gim_dkm training step", s.dkm_train_main_path)
+        s.phase("21 gim_roma training step", s.roma_train_main_path)
+        s.phase("22 gim_lightglue training step",
+                s.lightglue_train_main_path)
+        s.phase("23 later heads' training card against CPU",
+                s.head_card_vs_cpu)
+        s.phase("24 later heads' training loop and checkpoints",
+                s.head_train_loop)
+        s.phase("25 the kernels refuse a backward on the card",
+                s.kernels_refuse_backward)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

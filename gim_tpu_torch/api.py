@@ -135,9 +135,10 @@ class Matcher:
         early-exit heads dropped, `weights/port.py`). gim_roma also
         loads `dinov2_vitl14_pretrain.pth` from the checkpoint's directory
         where it is (gim_tpu/api.py:103-110); without it the trunk keeps
-        seeded random weights. `ckpt_path` may also be a directory of the
-        training CLI's checkpoints (`cli/train.py`), of which the latest
-        step loads."""
+        the checkpoint's weights (a training checkpoint holds them) or else
+        seeded random ones. `ckpt_path` may also be a directory of the
+        training CLI's checkpoints (`cli/train.py`, every head), of which
+        the latest step loads."""
         _check_name(name)
         resolve_device(device)
         if name == "root_sift":
@@ -147,19 +148,12 @@ class Matcher:
             raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
         ckpt_path = path
         raw = port.load_torch_state_dict(ckpt_path)
-        if name == "gim_roma":
-            side = os.path.join(os.path.dirname(ckpt_path),
-                                "dinov2_vitl14_pretrain.pth")
-            dino = (port.load_dinov2_state_dict(side)
-                    if os.path.exists(side) else None)
-            sd = port.roma_model_state_dict(raw, dino)
-        elif name == "gim_dkm":
-            sd = port.dkm_checkpoint_state_dict(raw)
-        elif name == "gim_lightglue":
-            sd = port.lightglue_checkpoint_state_dict(
-                raw, (cfg or C.GimConfig()).lightglue.n_layers)
-        else:
-            sd = port.loftr_checkpoint_state_dict(raw)
+        side = os.path.join(os.path.dirname(ckpt_path),
+                            "dinov2_vitl14_pretrain.pth")
+        dino = (port.load_dinov2_state_dict(side)
+                if name == "gim_roma" and os.path.exists(side) else None)
+        sd = port.checkpoint_state_dict(
+            name, raw, (cfg or C.GimConfig()).lightglue.n_layers, dino)
         return cls(name, cfg, state_dict=sd, device=device)
 
     def match(self, image0, image1, scale0=None, scale1=None, mask0=None,

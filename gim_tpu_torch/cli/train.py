@@ -1,18 +1,28 @@
 """Training CLI of the PyTorch port (port of `gim_tpu/cli/train.py`).
 
-    python -m gim_tpu_torch.cli.train --weight gim_loftr \
+    python -m gim_tpu_torch.cli.train \
+        --weight gim_loftr|gim_dkm|gim_roma|gim_lightglue \
         --labels_root <propagated labels> --video <video> \
         [--img_size 840] [--batch_size 1] [--max_labels 20000] \
-        [--max_steps 1000] [--ckpt_dir checkpoints/gim_loftr] \
+        [--max_steps 1000] [--ckpt_dir checkpoints/<weight>] \
         [--device cuda|cpu]
 
-gim_loftr trains on WALK pseudo-labels at the JAX CLI's operating point:
-`GimConfig(loftr=LoFTRConfig(max_matches=1024))` in float32 with both
-TF32 switches off, AdamW with the reference's LR scaling, warmup,
-MultiStep decay and global-norm clip 0.5 (`train/loop.py`). The other
-heads (gim_lightglue, gim_dkm, gim_roma) raise NotImplementedError: their
-training is a later slice of the port (6b). It runs on the GPU unless
-`--device cpu` is given, and raises without one.
+Every head trains on WALK pseudo-labels at the JAX CLI's operating point
+(`gim_tpu/cli/train.py:84-117`, `head_config`), in float32 with both TF32
+switches off, with AdamW under the reference's LR scaling, warmup,
+MultiStep decay and the config's global-norm clip (`train/loop.py`):
+
+- gim_loftr: `LoFTRConfig(max_matches=1024)`, `train/loop.py`;
+- gim_dkm: `DKMConfig(upsample_preds=False)` at h_resized = w_resized =
+  --img_size, `train/dense_losses.py`;
+- gim_roma: `RoMaConfig(upsample_preds=False)` (coarse_res 672, the
+  frozen DINOv2 ViT-L/14 in the optimizer as in the JAX step),
+  `train/dense_losses.py`;
+- gim_lightglue: SuperPoint and LightGlue jointly (the optimizer holds
+  both), `train/lightglue_loop.py`.
+
+`--img_size` defaults per head (`DEFAULT_SIZES`). It runs on the GPU
+unless `--device cpu` is given, and raises without one.
 
 Data parallel: under torchrun (`torchrun --nproc_per_node N -m
 gim_tpu_torch.cli.train ...`) each process takes `--batch_size` pairs and
@@ -21,10 +31,10 @@ writes the checkpoints.
 
 Checkpoints: every `--save_interval` steps and at the end,
 `<ckpt_dir>/step_XXXXXXXX.ckpt` (torch.save): the model in the reference
-layout under 'state_dict' (keys 'model.*', so `Matcher.from_checkpoint`
-loads the file or the directory), plus the optimizer's and scheduler's
-state and the step count. A run resumes from the latest checkpoint in
-`--ckpt_dir`.
+layout under 'state_dict' (`weights/port.reference_state_dict`, so
+`Matcher.from_checkpoint` loads the file or the directory), plus the
+optimizer's and scheduler's state and the step count. A run resumes from
+the latest checkpoint in `--ckpt_dir`.
 """
 
 from __future__ import annotations
@@ -39,11 +49,15 @@ import time
 import numpy as np
 import torch
 
+from gim_tpu_torch.api import build_model
 from gim_tpu_torch.config import GimConfig, LoFTRConfig, replace
 from gim_tpu_torch.models.common import init_weights
+from gim_tpu_torch.models.dkm.model import DKMMatcher
+from gim_tpu_torch.models.roma import RoMaMatcher
 from gim_tpu_torch.parallel import mesh
-from gim_tpu_torch.train.loop import (build_train_model, loftr_train_step,
-                                     make_optimizer)
+from gim_tpu_torch.train import loop
+from gim_tpu_torch.train.dense_losses import dense_train_step
+from gim_tpu_torch.train.lightglue_loop import lightglue_train_step
 from gim_tpu_torch.weights import port
 
 DEFAULT_SIZES = {"gim_loftr": 840, "gim_lightglue": 1024, "gim_dkm": 672,
@@ -51,18 +65,51 @@ DEFAULT_SIZES = {"gim_loftr": 840, "gim_lightglue": 1024, "gim_dkm": 672,
 BATCH_KEYS = ("color0", "color1", "labels", "label_valid")
 
 
+def head_config(weight: str, img_size: int) -> GimConfig:
+    """The JAX CLI's configuration of head `weight` at `img_size`
+    (`gim_tpu/cli/train.py:84-117`)."""
+    cfg = GimConfig(loftr=LoFTRConfig(max_matches=1024))
+    if weight == "gim_dkm":
+        # the model resolution follows --img_size (README.md:242 trains at
+        # 896 x 672), so training runs at the size asked for
+        cfg = replace(cfg, dkm=replace(cfg.dkm, upsample_preds=False,
+                                       h_resized=img_size,
+                                       w_resized=img_size))
+    elif weight == "gim_roma":
+        cfg = replace(cfg, roma=replace(cfg.roma, upsample_preds=False))
+    return cfg
+
+
+def build_train_model(weight: str, cfg: GimConfig) -> torch.nn.Module:
+    """Head `weight`'s model in train mode: gim_lightglue's SuperPoint and
+    LightGlue together, as the JAX CLI optimises its full variables."""
+    if weight == "gim_loftr":
+        return loop.build_train_model(cfg.loftr)
+    if weight == "gim_dkm":
+        return DKMMatcher(cfg.dkm, train_mode=True)
+    if weight == "gim_roma":
+        return RoMaMatcher(cfg.roma, train_mode=True)
+    if weight == "gim_lightglue":
+        return build_model(weight, cfg)
+    raise ValueError(f"no training for {weight}")
+
+
 class Trainer:
-    """gim_loftr's training state on one device: the model in train mode
-    (seeded weights), AdamW under its schedule, and the update count."""
+    """A head's training state on one device: the model in train mode
+    (seeded weights), AdamW over every parameter under its schedule, and
+    the update count."""
 
     def __init__(self, cfg: GimConfig, world_size: int, batch_size: int,
                  steps_per_epoch: int, device: torch.device,
-                 generator: torch.Generator | None = None):
-        self.model = build_train_model(cfg.loftr)
+                 generator: torch.Generator | None = None,
+                 weight: str = "gim_loftr"):
+        self.weight = weight
+        self.cfg = cfg
+        self.model = build_train_model(weight, cfg)
         init_weights(self.model, generator if generator is not None
                      else torch.Generator().manual_seed(cfg.trainer.seed))
         self.model.to(device)
-        self.optimizer, self.scheduler = make_optimizer(
+        self.optimizer, self.scheduler = loop.make_optimizer(
             self.model.parameters(), cfg.trainer, world_size, batch_size,
             steps_per_epoch)
         self.step_count = 0
@@ -70,19 +117,25 @@ class Trainer:
     def step(self, batch: dict) -> dict:
         """One update on this process's batch (the global batch's update
         under a process group). Returns the global losses."""
-        logs = loftr_train_step(self.model, self.optimizer, self.scheduler,
-                                batch)
+        m, opt, sched = self.model, self.optimizer, self.scheduler
+        if self.weight == "gim_loftr":
+            logs = loop.loftr_train_step(m, opt, sched, batch)
+        elif self.weight == "gim_lightglue":
+            logs = lightglue_train_step(m, opt, sched, self.cfg, batch)
+        else:
+            logs = dense_train_step(m, opt, sched, batch)
         self.step_count += 1
         return logs
 
     def save(self, path: str) -> None:
         port.write_training_checkpoint(path, self.model, self.optimizer,
-                                       self.scheduler, self.step_count)
+                                       self.scheduler, self.step_count,
+                                       self.weight)
 
     def load(self, path: str) -> None:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        self.model.load_state_dict(
-            port.loftr_checkpoint_state_dict(ckpt["state_dict"]))
+        self.model.load_state_dict(port.checkpoint_state_dict(
+            self.weight, ckpt["state_dict"], self.cfg.lightglue.n_layers))
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.scheduler.load_state_dict(ckpt["scheduler"])
         self.step_count = int(ckpt["step"])
@@ -214,10 +267,11 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 
 def trainer_config(args, world: int) -> GimConfig:
-    """The JAX CLI's configuration, with its LR / warmup / milestone
-    overrides: the canonical quantities are rewritten so that true_lr()
-    and true_warmup() come out at the requested values."""
-    cfg = GimConfig(loftr=LoFTRConfig(max_matches=1024))
+    """The JAX CLI's configuration of the head (`head_config`), with its
+    LR / warmup / milestone overrides: the canonical quantities are
+    rewritten so that true_lr() and true_warmup() come out at the
+    requested values."""
+    cfg = head_config(args.weight, args.img_size)
     if (args.lr is not None or args.warmup_steps is not None
             or args.milestones is not None):
         t = cfg.trainer
@@ -279,10 +333,6 @@ def main(argv=None):
     from gim_tpu_torch.data.walk import WalkDataset
     from gim_tpu_torch.utils.device import resolve_device, set_tf32
 
-    if args.weight != "gim_loftr":
-        raise NotImplementedError(
-            f"training {args.weight} is slice 6b of the port; "
-            "gim_loftr trains today")
     device = resolve_device(args.device)
     set_tf32(False)
     mesh.init_from_env(device)
@@ -308,7 +358,8 @@ def main(argv=None):
     print(f"[train] {args.weight}: {n_pairs} training pairs, {world} "
           f"process(es) on {device.type}")
 
-    trainer = Trainer(cfg, world, args.batch_size, max(n_pairs, 1), device)
+    trainer = Trainer(cfg, world, args.batch_size, max(n_pairs, 1), device,
+                      weight=args.weight)
     latest = port.latest_checkpoint(args.ckpt_dir)
     if latest is not None:
         trainer.load(latest)

@@ -11,13 +11,41 @@ the cast is a no-op on the float32 path.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gim_tpu_torch.parallel import mesh
+
+# set while `recomputed` re-runs a forward in backward: the running
+# statistics have moved once already, in the forward
+_RECOMPUTING = contextvars.ContextVar("gim_tpu_torch_recomputing",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def recomputed(fn, *args):
+    """fn(*args) with its activations recomputed in backward, flax's
+    `nn.remat`: `torch.utils.checkpoint` without reentrance. The
+    recomputation runs with the running-statistics update of
+    `batchnorm_train` off, so the statistics move once a step, in the
+    forward, as remat writes `batch_stats` once."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
 
 
 @torch.no_grad()
@@ -62,8 +90,11 @@ def batchnorm(mod: nn.BatchNorm2d, x: torch.Tensor, dt: torch.dtype,
     the batch's statistics (`batchnorm_train`)."""
     if train:
         return batchnorm_train(mod, x, dt)
-    return F.batch_norm(x.to(dt), mod.running_mean, mod.running_var,
-                        mod.weight, mod.bias, False, 0.0, mod.eps)
+    stats = (mod.running_mean, mod.running_var, mod.weight, mod.bias)
+    wide = torch.promote_types(dt, mod.weight.dtype)
+    if wide != mod.weight.dtype:        # float64 compute, float32 storage
+        stats = tuple(t.to(wide) for t in stats)
+    return F.batch_norm(x.to(dt), *stats, False, 0.0, mod.eps)
 
 
 def batchnorm_train(mod: nn.BatchNorm2d, x: torch.Tensor, dt: torch.dtype
@@ -77,6 +108,8 @@ def batchnorm_train(mod: nn.BatchNorm2d, x: torch.Tensor, dt: torch.dtype
     by `r <- 0.9 r + 0.1 batch`, with the *biased* batch variance, as flax
     does; `F.batch_norm(training=True)` and `nn.SyncBatchNorm` update with
     the unbiased one, so neither is used.
+
+    Inside the recomputation of `recomputed` the running statistics stay.
 
     Under a process group (`parallel.mesh.in_group`), each channel's sums
     of x and x^2 and the count are all-reduced through
@@ -97,13 +130,19 @@ def batchnorm_train(mod: nn.BatchNorm2d, x: torch.Tensor, dt: torch.dtype
         s1, s2, n = s[:s1.shape[0]], s[s1.shape[0]:-1], s[-1]
     mean = s1 / n
     var = (s2 / n - mean.square()).clamp_min(0.0)
-    with torch.no_grad():
-        mod.running_mean.mul_(0.9).add_(0.1 * mean.to(mod.running_mean.dtype))
-        mod.running_var.mul_(0.9).add_(0.1 * var.to(mod.running_var.dtype))
+    if not _RECOMPUTING.get():
+        _update_running_stats(mod, mean, var)
     mul = torch.rsqrt(var + mod.eps) * mod.weight.to(xf.dtype)
     y = (xf - mean[:, None, None]) * mul[:, None, None] \
         + mod.bias.to(xf.dtype)[:, None, None]
     return y.to(dt)
+
+
+@torch.no_grad()
+def _update_running_stats(mod: nn.BatchNorm2d, mean: torch.Tensor,
+                          var: torch.Tensor):
+    mod.running_mean.mul_(0.9).add_(0.1 * mean.to(mod.running_mean.dtype))
+    mod.running_var.mul_(0.9).add_(0.1 * var.to(mod.running_var.dtype))
 
 
 def layernorm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

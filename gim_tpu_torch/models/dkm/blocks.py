@@ -201,11 +201,14 @@ class GP(nn.Module):
 
 class RRB(nn.Module):
     """Refinement residual block (ref dkm.py:173-202): 1x1 conv, then
-    relu(x + conv3(relu(bn(conv2(x))))) with 3x3 convs."""
+    relu(x + conv3(relu(bn(conv2(x))))) with 3x3 convs; the BatchNorm
+    takes the batch's statistics in `train_mode`."""
 
-    def __init__(self, in_dim: int, out_dim: int, dtype: str = "float32"):
+    def __init__(self, in_dim: int, out_dim: int, dtype: str = "float32",
+                 train_mode: bool = False):
         super().__init__()
         self.dtype = torch_dtype(dtype)
+        self.train_mode = train_mode
         self.conv1 = nn.Conv2d(in_dim, out_dim, 1)
         self.conv2 = nn.Conv2d(out_dim, out_dim, 3, padding=1)
         self.bn = nn.BatchNorm2d(out_dim)
@@ -214,7 +217,8 @@ class RRB(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = conv(self.conv1, x, dt)
-        res = F.relu(batchnorm(self.bn, conv(self.conv2, x, dt), dt))
+        res = F.relu(batchnorm(self.bn, conv(self.conv2, x, dt), dt,
+                               self.train_mode))
         return F.relu(x + conv(self.conv3, res, dt))
 
 
@@ -241,21 +245,24 @@ class DFN(nn.Module):
     `DFNScale` (`gim_tpu/models/dkm/blocks.py:500-527`) per scale, its
     modules held in per-scale dicts as the reference's state dict keys
     them (`feat_input_modules.{s}`, `rrb_d.{s}`, `cab.{s}`, `rrb_u.{s}`,
-    `terminal_module.{s}`)."""
+    `terminal_module.{s}`). `train_mode` reaches the RRBs' BatchNorms."""
 
     def __init__(self, scales=("32", "16"), in_dim: int = 512,
                  feat_dim: int = 256, gp_dim: int = 256,
-                 internal_dim: int = 384, dtype: str = "float32"):
+                 internal_dim: int = 384, dtype: str = "float32",
+                 train_mode: bool = False):
         super().__init__()
         self.dtype = torch_dtype(dtype)
         self.feat_input_modules = nn.ModuleDict({
             s: nn.Conv2d(in_dim, feat_dim, 1) for s in scales})
         self.rrb_d = nn.ModuleDict({
-            s: RRB(feat_dim + gp_dim, internal_dim, dtype) for s in scales})
+            s: RRB(feat_dim + gp_dim, internal_dim, dtype, train_mode)
+            for s in scales})
         self.cab = nn.ModuleDict({
             s: CAB(2 * internal_dim, internal_dim, dtype) for s in scales})
         self.rrb_u = nn.ModuleDict({
-            s: RRB(internal_dim, internal_dim, dtype) for s in scales})
+            s: RRB(internal_dim, internal_dim, dtype, train_mode)
+            for s in scales})
         self.terminal_module = nn.ModuleDict({
             s: nn.Conv2d(internal_dim, 3, 1) for s in scales})
 
@@ -282,9 +289,9 @@ def _block(in_dim: int, out_dim: int) -> nn.Sequential:
         nn.BatchNorm2d(out_dim), nn.ReLU(), nn.Conv2d(out_dim, out_dim, 1))
 
 
-def _run_block(block: nn.Sequential, x: torch.Tensor,
-               dt: torch.dtype) -> torch.Tensor:
-    h = batchnorm(block[1], conv(block[0], x, dt), dt)
+def _run_block(block: nn.Sequential, x: torch.Tensor, dt: torch.dtype,
+               train: bool = False) -> torch.Tensor:
+    h = batchnorm(block[1], conv(block[0], x, dt), dt, train)
     return conv(block[3], F.relu(h), dt)
 
 
@@ -299,17 +306,21 @@ class ConvRefiner(nn.Module):
     dx, dy] and RoMa's [dx, dy, certainty] (`disp_first`); RoMa passes
     emb_scale 40/32 * scale_factor, DKM 1.
 
-    The hidden blocks run as kernel K2 (`ops/kernels/refiner.py`) when
-    GIM_TPU_FUSED_REFINER is on, the module is in eval mode and
+    In `train_mode` every BatchNorm takes the batch's statistics. The
+    hidden blocks run as kernel K2 (`ops/kernels/refiner.py`) when
+    GIM_TPU_FUSED_REFINER is on, the module is not in `train_mode` and
     hidden_dim <= 192 (`blocks.py:582-584`); otherwise as depthwise conv,
-    BatchNorm, ReLU and 1x1 conv, the JAX default graph.
+    BatchNorm, ReLU and 1x1 conv, the JAX default graph. The warped
+    features take no gradient (`blocks.py:640-642`: stop_gradient).
     """
 
     def __init__(self, in_dim: int, hidden_dim: int,
                  displacement_emb_dim: int,
                  local_corr_radius: int | None = None,
-                 disp_first: bool = False, dtype: str = "float32"):
+                 disp_first: bool = False, dtype: str = "float32",
+                 train_mode: bool = False):
         super().__init__()
+        self.train_mode = train_mode
         self.hidden_dim = hidden_dim
         self.local_corr_radius = local_corr_radius
         self.disp_first = disp_first
@@ -321,7 +332,7 @@ class ConvRefiner(nn.Module):
         self.disp_emb = nn.Conv2d(2, displacement_emb_dim, 1)
 
     def fuses_hidden_blocks(self) -> bool:
-        return (not self.training and self.hidden_dim <= 192
+        return (not self.train_mode and self.hidden_dim <= 192
                 and flags.fused_refiner())
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor,
@@ -333,7 +344,8 @@ class ConvRefiner(nn.Module):
         y = y.to(dt)
         flow = flow.float()
         B, C, H, W = x.shape
-        x_hat = grid_sample(y, flow.reshape(B, H * W, 2)).view(B, C, H, W)
+        x_hat = grid_sample(y, flow.reshape(B, H * W, 2)).view(
+            B, C, H, W).detach()
         disp = (flow - coords_grid(B, H, W, x.device)).permute(0, 3, 1, 2)
         parts = [x, x_hat, conv(self.disp_emb, emb_scale * disp,
                                 torch.float32)]
@@ -341,7 +353,7 @@ class ConvRefiner(nn.Module):
             parts.append(local_correlation(x, y, self.local_corr_radius,
                                            flow=flow))
         d = torch.cat([p.to(dt) for p in parts], dim=1)
-        d = _run_block(self.block1, d, dt)
+        d = _run_block(self.block1, d, dt, self.train_mode)
         if self.fuses_hidden_blocks():
             for blk in self.hidden_blocks:
                 params = fold_block_params(blk[0], blk[1], blk[3])
@@ -349,7 +361,7 @@ class ConvRefiner(nn.Module):
                                    *(p.to(dt).contiguous() for p in params))
         else:
             for blk in self.hidden_blocks:
-                d = _run_block(blk, d, dt)
+                d = _run_block(blk, d, dt, self.train_mode)
         d = conv(self.out_conv, d, dt).float().permute(0, 2, 3, 1)
         if self.disp_first:
             return d[..., -1:], d[..., :-1]

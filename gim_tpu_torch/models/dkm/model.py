@@ -19,6 +19,13 @@ Features are NCHW; flows and certainties NHWC (blocks.py). Both images of
 a pair go through the encoder as one batch [q; s], and the decoder sees
 the support features with the halves swapped, so one pass matches both
 directions.
+
+Training (`train_mode`, decided at construction, `:40-147`): the DFN's
+and the refiners' BatchNorms take the batch's statistics, the GP solves
+every row (no `bug_compat`), each refiner is recomputed in backward
+(`common.recomputed`, JAX's `nn.remat`) and the kernel K2 stays off;
+`train_corresps` is the single symmetric pass at (h_resized, w_resized).
+The encoder keeps its running statistics in both modes (`:116`).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gim_tpu_torch.config import DKMConfig
-from gim_tpu_torch.models.common import conv
+from gim_tpu_torch.models.common import conv, recomputed
 from gim_tpu_torch.models.dkm.blocks import (DFN, GP, ConvRefiner,
                                              coords_grid, kde_density,
                                              resize_nhwc, resize_region_nhwc)
@@ -51,22 +58,25 @@ PROJ_IN = {"32": 2048, "16": 1024}
 
 
 class DKMDecoder(nn.Module):
-    def __init__(self, cfg: DKMConfig):
+    def __init__(self, cfg: DKMConfig, train_mode: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.train_mode = train_mode
         self.dtype = torch_dtype(cfg.dtype)
         self.proj = nn.ModuleDict({s: nn.Conv2d(cin, 512, 1)
                                    for s, cin in PROJ_IN.items()})
         # the eval graph replicates the reference's batched-inverse bug
-        # (blocks.GP); the port has no training path
+        # (blocks.GP); training solves every row (model.py:74-77)
         self.gps = nn.ModuleDict({
-            s: GP(cfg.gp_dim, bug_compat=cfg.gp_inv_bug_compat)
+            s: GP(cfg.gp_dim,
+                  bug_compat=cfg.gp_inv_bug_compat and not train_mode)
             for s in PROJ_IN})
         self.embedding_decoder = DFN(tuple(PROJ_IN), 512, cfg.feat_dim,
-                                     cfg.gp_dim, cfg.dfn_dim, cfg.dtype)
+                                     cfg.gp_dim, cfg.dfn_dim, cfg.dtype,
+                                     train_mode)
         self.conv_refiner = nn.ModuleDict({
             s: ConvRefiner(i, h, displacement_emb_dim=e, local_corr_radius=r,
-                           dtype=cfg.dtype)
+                           dtype=cfg.dtype, train_mode=train_mode)
             for s, (i, h, e, r) in REFINER_SPECS.items()
             if s in cfg.refiner_scales})
 
@@ -77,7 +87,8 @@ class DKMDecoder(nn.Module):
         stride 32, where the GP and the DFN set flow and certainty at
         strides 32 and 16; or upsample pass from stride 8, starting at
         `flow` (B, h, w, 2) and `certainty` (B, h, w, 1). Returns {stride:
-        {"flow", "certainty"}}, float32 NHWC."""
+        {"flow", "certainty"}}, float32 NHWC. The flow and certainty handed
+        to the next stride carry no gradient (`model.py:104-105`)."""
         dt = self.dtype
         scales = ["8", "4", "2", "1"] if upsample else \
             ["32", "16", "8", "4", "2", "1"]
@@ -111,7 +122,11 @@ class DKMDecoder(nn.Module):
                 flow, certainty, context = self.embedding_decoder(
                     s, post, f1_s, context)
             if s in self.conv_refiner:
-                delta_cert, disp = self.conv_refiner[s](f1_s, f2_s, flow)
+                refiner = self.conv_refiner[s]
+                if self.train_mode:
+                    delta_cert, disp = recomputed(refiner, f1_s, f2_s, flow)
+                else:
+                    delta_cert, disp = refiner(f1_s, f2_s, flow)
                 # the displacement is in units of 4 px of this pass's
                 # full resolution
                 flow = torch.stack([flow[..., 0] + ins * disp[..., 0] / (4 * W),
@@ -121,19 +136,21 @@ class DKMDecoder(nn.Module):
             out[ins] = {"flow": flow, "certainty": certainty}
             if s != "1":
                 nxt = sizes[ins // 2]
-                flow = resize_nhwc(flow, *nxt)
-                certainty = resize_nhwc(certainty, *nxt)
+                flow = resize_nhwc(flow, *nxt).detach()
+                certainty = resize_nhwc(certainty, *nxt).detach()
         return out
 
 
 class DKMMatcher(nn.Module):
-    """Symmetric two-pass dense matcher (ref dkm.py:655-753)."""
+    """Symmetric two-pass dense matcher (ref dkm.py:655-753); in
+    `train_mode` the decoder's training graph (module docstring)."""
 
-    def __init__(self, cfg: DKMConfig):
+    def __init__(self, cfg: DKMConfig, train_mode: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.train_mode = train_mode
         self.encoder = ResNet50Pyramid(cfg.dtype)
-        self.decoder = DKMDecoder(cfg)
+        self.decoder = DKMDecoder(cfg, train_mode)
 
     def pyramids(self, q: torch.Tensor, s: torch.Tensor):
         """q, s: (B, 3, h, w). Returns the query-side and support-side
@@ -142,6 +159,21 @@ class DKMMatcher(nn.Module):
         B = q.shape[0]
         f_s = {k: torch.cat([v[B:], v[:B]], dim=0) for k, v in feats.items()}
         return feats, f_s
+
+    def train_corresps(self, im0: torch.Tensor, im1: torch.Tensor) -> dict:
+        """The training pass (`model.py:132-147`): im0, im1 (B, 3, H, W)
+        resized to (h_resized, w_resized), one symmetric decoder pass, no
+        upsample pass. Returns {stride: {"dense_flow" (2B, h, w, 2),
+        "dense_certainty" (2B, h, w, 1)}}; rows B..2B match image 1 to
+        image 0."""
+        c = self.cfg
+        q = resize_nhwc(im0.float().permute(0, 2, 3, 1), c.h_resized,
+                        c.w_resized)
+        s = resize_nhwc(im1.float().permute(0, 2, 3, 1), c.h_resized,
+                        c.w_resized)
+        f_q, f_s = self.pyramids(q.permute(0, 3, 1, 2), s.permute(0, 3, 1, 2))
+        return {k: {"dense_flow": d["flow"], "dense_certainty": d["certainty"]}
+                for k, d in self.decoder(f_q, f_s).items()}
 
     def forward(self, im0: torch.Tensor, im1: torch.Tensor,
                 extent0: torch.Tensor | None = None,

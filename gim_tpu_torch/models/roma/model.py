@@ -20,10 +20,22 @@ Features are NCHW; flows and certainties NHWC (blocks.py). Both images of
 a pair go through the encoders as one batch [q; s], and the decoder sees
 the support features with the halves swapped, so one pass matches both
 directions.
+
+DINOv2 runs without gradient (JAX's stop_gradient, `:224`), and the flow
+leaves `cls_to_flow_refine` and each scale without one (`:173`,
+`:199-200`). Training (`train_mode`, decided at construction): each
+projection's BatchNorm takes the batch's statistics, twice a scale (on
+f1, then on f2, as the one flax module called twice moves its running
+statistics twice, `:161-166`), so do the refiners', each refiner is
+recomputed in backward (`common.recomputed`, JAX's `nn.remat`,
+`:179-181`) and the kernel K2 stays off; `train_corresps` is the single
+symmetric pass at coarse_res (`:234-246`). VGG19 keeps its running
+statistics in both modes (`:211`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -31,7 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gim_tpu_torch.config import RoMaConfig
-from gim_tpu_torch.models.common import batchnorm, conv, dense
+from gim_tpu_torch.models.common import batchnorm, conv, dense, recomputed
 from gim_tpu_torch.models.dinov2 import Block, DinoViT
 from gim_tpu_torch.models.dkm.blocks import (GP, ConvRefiner, coords_grid,
                                              resize_nhwc, resize_region_nhwc)
@@ -145,8 +157,9 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class RoMaDecoder(nn.Module):
-    def __init__(self, cfg: RoMaConfig):
+    def __init__(self, cfg: RoMaConfig, train_mode: bool = False):
         super().__init__()
+        self.train_mode = train_mode
         self.dtype = torch_dtype(cfg.dtype)
         self.embedding_decoder = TransformerDecoder(
             cfg.decoder_dim, cfg.cls_to_coord_res ** 2 + 1,
@@ -157,7 +170,8 @@ class RoMaDecoder(nn.Module):
             for s, (cin, cout) in PROJ_SPECS.items()})
         self.conv_refiner = nn.ModuleDict({
             s: ConvRefiner(i, h, displacement_emb_dim=e, local_corr_radius=r,
-                           disp_first=True, dtype=cfg.dtype)
+                           disp_first=True, dtype=cfg.dtype,
+                           train_mode=train_mode)
             for s, (i, h, e, r) in ROMA_REFINER_SPECS.items()})
 
     def forward(self, f1: dict, f2: dict, upsample: bool = False,
@@ -188,18 +202,23 @@ class RoMaDecoder(nn.Module):
         for s in scales:
             ins = int(s)
             proj = self.proj[s]
-            f1_s = batchnorm(proj[1], conv(proj[0], f1[ins], dt), dt)
-            f2_s = batchnorm(proj[1], conv(proj[0], f2[ins], dt), dt)
+            train = self.train_mode
+            f1_s = batchnorm(proj[1], conv(proj[0], f1[ins], dt), dt, train)
+            f2_s = batchnorm(proj[1], conv(proj[0], f2[ins], dt), dt, train)
             if ins == 16 and not upsample:
                 gp_post = self.gps["16"](_nhwc(f1_s), _nhwc(f2_s))
                 cls_logits, certainty = self.embedding_decoder(gp_post,
                                                                _nhwc(f1_s))
-                flow = cls_to_flow_refine(cls_logits)
+                flow = cls_to_flow_refine(cls_logits).detach()
                 out[ins] = {"gm_cls": cls_logits, "gm_certainty": certainty}
             else:
                 out[ins] = {}
-            delta_cert, disp = self.conv_refiner[s](
-                f1_s, f2_s, flow, emb_scale=40.0 / 32.0 * scale_factor)
+            refiner = functools.partial(self.conv_refiner[s],
+                                        emb_scale=40.0 / 32.0 * scale_factor)
+            if train:
+                delta_cert, disp = recomputed(refiner, f1_s, f2_s, flow)
+            else:
+                delta_cert, disp = refiner(f1_s, f2_s, flow)
             displacement = torch.stack([
                 ins * disp[..., 0] / (refine_init * W),
                 ins * disp[..., 1] / (refine_init * H)], dim=-1)
@@ -208,19 +227,21 @@ class RoMaDecoder(nn.Module):
             out[ins].update({"certainty": certainty, "flow": flow})
             if s != "1":
                 nxt = sizes[ins // 2]
-                flow = resize_nhwc(flow, *nxt)
-                certainty = resize_nhwc(certainty, *nxt)
+                flow = resize_nhwc(flow, *nxt).detach()
+                certainty = resize_nhwc(certainty, *nxt).detach()
         return out
 
 
 class RoMaMatcher(nn.Module):
-    """Symmetric two-pass dense matcher (ref roma.py:815-917)."""
+    """Symmetric two-pass dense matcher (ref roma.py:815-917); in
+    `train_mode` the decoder's training graph (module docstring)."""
 
-    def __init__(self, cfg: RoMaConfig):
+    def __init__(self, cfg: RoMaConfig, train_mode: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.train_mode = train_mode
         self.encoder = nn.ModuleDict({"cnn": VGG19(cfg.dtype)})
-        self.decoder = RoMaDecoder(cfg)
+        self.decoder = RoMaDecoder(cfg, train_mode)
         self.dinov2 = DinoViT(depth=cfg.dino_depth, dtype=cfg.dtype)
 
     def pyramids(self, q: torch.Tensor, s: torch.Tensor, upsample: bool):
@@ -229,13 +250,25 @@ class RoMaMatcher(nn.Module):
         x = torch.cat([q, s], dim=0)
         feats = self.encoder["cnn"](x)
         if not upsample:
-            tokens = self.dinov2(x)                     # (2B, hp wp, 1024)
+            with torch.no_grad():                       # the frozen trunk
+                tokens = self.dinov2(x)                 # (2B, hp wp, 1024)
             B2, _, H, W = x.shape
             feats[16] = tokens.reshape(B2, H // 14, W // 14, -1).permute(
                 0, 3, 1, 2)
         B = q.shape[0]
         f_s = {k: torch.cat([v[B:], v[:B]], dim=0) for k, v in feats.items()}
         return feats, f_s
+
+    def train_corresps(self, im0: torch.Tensor, im1: torch.Tensor) -> dict:
+        """The training pass (`model.py:234-246`): im0, im1 (B, 3, H, W)
+        resized to coarse_res, one symmetric decoder pass, no upsample
+        pass. Returns {scale: {"flow" (2B, h, w, 2), "certainty" (2B, h,
+        w, 1)[, "gm_cls", "gm_certainty" at 16]}}; rows B..2B match image
+        1 to image 0."""
+        r = self.cfg.coarse_res
+        q = resize_nhwc(_nhwc(im0.float()), r, r).permute(0, 3, 1, 2)
+        s = resize_nhwc(_nhwc(im1.float()), r, r).permute(0, 3, 1, 2)
+        return self.decoder(*self.pyramids(q, s, False))
 
     def forward(self, im0: torch.Tensor, im1: torch.Tensor,
                 extent0: torch.Tensor | None = None,

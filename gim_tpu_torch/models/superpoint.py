@@ -39,9 +39,12 @@ class SuperPointNet(nn.Module):
         self.convPb = nn.Conv2d(c5, 65, 1)
         self.convDb = nn.Conv2d(c5, descriptor_dim, 1)
 
-    def forward(self, image: torch.Tensor):
+    def forward(self, image: torch.Tensor, return_logits: bool = False):
         """image: (B, 1, H, W) gray. Returns scores (B, 8 Hc, 8 Wc) and
-        L2-normalized descriptors (B, D, Hc, Wc), Hc = H // 8."""
+        L2-normalized descriptors (B, D, Hc, Wc), Hc = H // 8; with
+        `return_logits` also the raw cell logits (B, Hc, Wc, 65), dustbin
+        last, in the JAX package's layout (`superpoint.py:33`, `:66`), which
+        the training loss reads (`train/lightglue_loop.py`)."""
         x = image
         for stage in ("1", "2", "3", "4"):
             x = F.relu(getattr(self, f"conv{stage}a")(x))
@@ -52,8 +55,10 @@ class SuperPointNet(nn.Module):
         # cell to pixel (8 y + dy, 8 x + dx): a pixel shuffle
         logits = self.convPb(F.relu(self.convPa(x)))
         scores = F.pixel_shuffle(torch.softmax(logits, dim=1)[:, :-1], 8)
-        desc = self.convDb(F.relu(self.convDa(x)))
-        return scores[:, 0], safe_l2_normalize(desc, dim=1)
+        desc = safe_l2_normalize(self.convDb(F.relu(self.convDa(x))), dim=1)
+        if return_logits:
+            return scores[:, 0], desc, logits.permute(0, 2, 3, 1)
+        return scores[:, 0], desc
 
 
 def extract(net: SuperPointNet, image: torch.Tensor, cfg: SuperPointConfig,

@@ -26,7 +26,9 @@ sum-exp; the first chunk holding the maximum) and keep their (B, L)
 rows. `dual_softmax_mutual` reduces the column partials with torch ops
 between and after the sweeps, as the JAX package leaves them to XLA
 (`dsmax.py:226-258`). For a CUDA tensor a wrapper launches its kernel or
-raises (`kernel_args` says what the kernel takes). `LAUNCHES` counts the
+raises (`kernel_args` says what the kernel takes). `dual_softmax_mutual`
+is forward only on both devices (`forward_only.py`): a backward through
+its conf raises. `LAUNCHES` counts the
 launches of each of the four kernels: the bf16 sweeps under their names,
 the float32 ones (`dsmax_f32_kernel<false / true>` in the source) as
 `dsmax_stats_f32` and `dsmax_argmax_f32`.
@@ -43,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from gim_tpu_torch.ops.kernels.build import load_library
+from gim_tpu_torch.ops.kernels.forward_only import forward_only
 
 NEG = -1e30
 # rows of f0 per block, by feature dtype; must match dsmax_block_rows()
@@ -418,7 +421,13 @@ def dual_softmax_mutual(f0: torch.Tensor, f1: torch.Tensor,
     get conf 0 and mutual False. Same as dense `dual_softmax` + row/column
     argmax, without materialising (L, S). `chunks`: chunks of S in both
     sweeps (default `sweep_chunks`; the result does not depend on it).
+    Forward only: a backward through conf raises.
     """
+    return forward_only("dual_softmax_mutual", _dual_softmax_mutual, f0, f1,
+                        temperature, mask0, mask1, chunks)
+
+
+def _dual_softmax_mutual(f0, f1, temperature, mask0, mask1, chunks):
     f0 = f0.contiguous()
     f1 = f1.contiguous()
     L = f0.shape[1]

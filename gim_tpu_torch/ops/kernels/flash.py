@@ -18,7 +18,9 @@ a (B, H, N, D) view of a contiguous (B, N, H, D) buffer, so
 
 `flash_sdpa` takes the plain version `flash_sdpa_plain` (the einsum +
 softmax of `ops.attention.sdpa`) only for CPU tensors; for a CUDA tensor
-it launches the kernel or raises. `LAUNCHES` counts the launches.
+it launches the kernel or raises. On both it is forward only
+(`forward_only.py`): a backward through it raises. `LAUNCHES` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from gim_tpu_torch.ops.attention import sdpa
 from gim_tpu_torch.ops.kernels.build import load_library
+from gim_tpu_torch.ops.kernels.forward_only import forward_only
 
 HEAD_DIMS = (64, 128)
 ALIGN = 16            # bytes: TMA's rule for bases and strides
@@ -97,7 +100,12 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v for q, k, v (B, H, N, D) of one shape and
     dtype (bf16 or float32). Returns q's shape and dtype; on the card as a
-    view of a contiguous (B, N, H, D) buffer (module docstring)."""
+    view of a contiguous (B, N, H, D) buffer (module docstring). Forward
+    only: a backward through the result raises."""
+    return forward_only("flash_attention", _flash_sdpa, q, k, v)
+
+
+def _flash_sdpa(q, k, v):
     if q.device.type == "cpu":
         return flash_sdpa_plain(q, k, v)
     if q.device.type != "cuda":

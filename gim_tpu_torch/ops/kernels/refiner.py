@@ -18,8 +18,9 @@ element loads and stores otherwise (same results, slower).
 `fold_block_params` folds a block's modules into the kernel's inputs.
 `fused_dw_block` takes the plain version `fused_dw_block_plain` (grouped
 `F.conv2d`, ReLU, 1x1 `F.conv2d` on the folded parameters) only for CPU
-tensors; for a CUDA tensor it launches the kernel or raises. `LAUNCHES`
-counts the launches.
+tensors; for a CUDA tensor it launches the kernel or raises. On both it
+is forward only (`forward_only.py`): a backward through it raises.
+`LAUNCHES` counts the launches.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from gim_tpu_torch.ops.kernels.build import load_library
+from gim_tpu_torch.ops.kernels.forward_only import forward_only
 
 KERNEL_SIZE = 5
 MAX_CHANNELS = 192    # must match MAXC in csrc/refiner.cu
@@ -93,7 +95,13 @@ def fused_dw_block(x: torch.Tensor, wdw: torch.Tensor, bdw: torch.Tensor,
                    w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
     """x: (B, C, H, W); wdw: (C, 25); bdw: (C,); w1: (C_out, C); b1:
     (C_out,), all contiguous and of x's dtype on CUDA (module docstring).
-    Returns a contiguous (B, C_out, H, W) in x's dtype."""
+    Returns a contiguous (B, C_out, H, W) in x's dtype. Forward only: a
+    backward through the result raises."""
+    return forward_only("refiner_block", _fused_dw_block, x, wdw, bdw, w1,
+                        b1)
+
+
+def _fused_dw_block(x, wdw, bdw, w1, b1):
     if x.device.type == "cpu":
         return fused_dw_block_plain(x, wdw, bdw, w1, b1)
     if x.device.type != "cuda":

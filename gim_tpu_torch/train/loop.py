@@ -1,7 +1,11 @@
-"""gim_loftr training step: forward in train mode, losses, backward, clip,
-AdamW.
+"""The training step every head shares: forward in train mode, losses,
+backward, clip, AdamW; and gim_loftr's step on it.
 
-Port of `gim_tpu/train/loop.py`. The optimizer follows ref
+Port of `gim_tpu/train/loop.py`. `train_step` is the skeleton (zero the
+gradients, the head's loss, `backward`, the clipped AdamW step, the
+schedule); `loftr_train_step` here, `train/dense_losses.dense_train_step`
+(gim_dkm, gim_roma) and `train/lightglue_loop.lightglue_train_step` give
+it their losses. The optimizer follows ref
 trainer/config.py:24-41 and test.py:158-165, as the JAX package does:
 AdamW (decay 0.1 on every parameter), linear warmup under the linear LR
 scaling rule, MultiStep gamma decay, global-norm clip 0.5.
@@ -161,17 +165,25 @@ def backward(loss: torch.Tensor, optimizer) -> None:
         mesh.sum_grads_([p.grad for p in params])
 
 
-def loftr_train_step(model: LoFTRMatcher, optimizer, scheduler, batch: dict,
-                     uniform=None, gumbel=None) -> dict:
-    """One update of `model` on `batch`: forward in train mode (BatchNorm
-    running statistics updated) and losses (`loftr_loss`), `backward`,
-    the optimizer's step (global-norm clip, AdamW; `make_optimizer`), the
-    schedule. Returns {"loss", "loss_c", "loss_f"}, detached: the global
-    batch's under a process group, whose update this is."""
+def train_step(loss_fn, optimizer, scheduler) -> dict:
+    """One update: zero the gradients, `loss_fn()` -> (loss, logs) (the
+    forward in train mode, which moves the BatchNorm running statistics,
+    and the losses), `backward`, the optimizer's step (global-norm clip,
+    AdamW; `make_optimizer`), the schedule. Returns {"loss", **logs},
+    detached: the global batch's under a process group, whose update this
+    is (each process's values are its shares)."""
     optimizer.zero_grad(set_to_none=False)
-    loss, logs = loftr_loss(model, batch, uniform, gumbel)
+    loss, logs = loss_fn()
     backward(loss, optimizer)
     optimizer.step()
     scheduler.step()
     return {k: mesh.global_sum(v) for k, v in
             {"loss": loss, **logs}.items()}
+
+
+def loftr_train_step(model: LoFTRMatcher, optimizer, scheduler, batch: dict,
+                     uniform=None, gumbel=None) -> dict:
+    """`train_step` on gim_loftr's losses (`loftr_loss`). Returns {"loss",
+    "loss_c", "loss_f"}."""
+    return train_step(lambda: loftr_loss(model, batch, uniform, gumbel),
+                      optimizer, scheduler)

@@ -158,8 +158,8 @@ def lightglue_nll_loss(log_assignment: torch.Tensor,
     matched = (gt_matches0 >= 0) & valid0
     idx = torch.where(matched, gt_matches0, S).long()
     rows = torch.gather(log_assignment[:, :L, :], 2, idx[..., None])[..., 0]
-    w_pos = matched.float()
-    w_neg = (valid0 & ~matched).float()
-    nll_pos = -torch.sum(rows * w_pos) / w_pos.sum().clamp_min(1.0)
-    nll_neg = -torch.sum(rows * w_neg) / w_neg.sum().clamp_min(1.0)
+    w_pos = matched.to(rows.dtype)
+    w_neg = (valid0 & ~matched).to(rows.dtype)
+    nll_pos = -torch.sum(rows * w_pos) / global_sum(w_pos.sum()).clamp_min(1)
+    nll_neg = -torch.sum(rows * w_neg) / global_sum(w_neg.sum()).clamp_min(1)
     return 0.5 * (nll_pos + nll_neg)

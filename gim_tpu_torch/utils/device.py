@@ -10,14 +10,17 @@ three decimal digits). `set_tf32` sets both switches explicitly; the
 matchers turn both off, so their float32 path is float32 end to end. The
 bfloat16 path (`LoFTRConfig.dtype="bfloat16"`) stores weights and
 activations in bf16 and runs convolutions and matmuls on the tensor cores
-with float32 accumulation; the TF32 switches do not touch it.
+with float32 accumulation; the TF32 switches do not touch it. A config's
+"float64", as the JAX package takes it under x64, computes in float64
+where the model's dtype reaches (the tests' reference steps).
 """
 
 from __future__ import annotations
 
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -64,16 +64,49 @@ def loftr_checkpoint_state_dict(sd: dict) -> dict:
             if not k.startswith(LOFTR_DROP)}
 
 
+def reference_state_dict(name: str, model: torch.nn.Module
+                         ) -> dict[str, torch.Tensor]:
+    """A head's model state dict in the reference checkpoint layout, on the
+    CPU: gim_lightglue's SuperPoint under 'superpoint.' and its LightGlue
+    under 'model.' (ref demo.py:378-395); every other head's keys under
+    'model.', as the reference's Lightning checkpoints hold them (gim_roma
+    keeps its DINOv2 trunk under 'model.dinov2.')."""
+    out = {}
+    for k, v in model.state_dict().items():
+        if name == "gim_lightglue":
+            head, _, rest = k.partition(".")
+            k = f"superpoint.{rest}" if head == "superpoint" else \
+                f"model.{rest}"
+        else:
+            k = f"model.{k}"
+        out[k] = v.detach().cpu()
+    return out
+
+
+def checkpoint_state_dict(name: str, sd: Mapping, n_layers: int = 9,
+                          dinov2_sd: Mapping | None = None) -> dict:
+    """A reference-layout checkpoint's state dict of head `name` as the
+    port's model of that head loads it (`n_layers`: gim_lightglue's depth;
+    `dinov2_sd`: gim_roma's hub trunk, which replaces the checkpoint's)."""
+    if name == "gim_roma":
+        return roma_model_state_dict(sd, dinov2_sd)
+    if name == "gim_dkm":
+        return dkm_checkpoint_state_dict(sd)
+    if name == "gim_lightglue":
+        return lightglue_checkpoint_state_dict(sd, n_layers)
+    return loftr_checkpoint_state_dict(sd)
+
+
 def write_training_checkpoint(path: str, model: torch.nn.Module,
-                              optimizer, scheduler, step: int) -> None:
-    """A training checkpoint: the model's state dict in the reference
-    layout (under 'state_dict', keys prefixed 'model.', as the reference's
-    Lightning checkpoints hold it, so `loftr_checkpoint_state_dict` and
-    `Matcher.from_checkpoint` read it), plus the optimizer's and
-    scheduler's state and the step count. Written to a temporary file and
-    renamed, so a cut run leaves no partial checkpoint."""
-    sd = {f"model.{k}": v.detach().cpu()
-          for k, v in model.state_dict().items()}
+                              optimizer, scheduler, step: int,
+                              name: str = "gim_loftr") -> None:
+    """A training checkpoint of head `name`: the model's state dict in the
+    reference layout under 'state_dict' (`reference_state_dict`, so that
+    `checkpoint_state_dict` and `Matcher.from_checkpoint` read it), plus
+    the optimizer's and scheduler's state and the step count. Written to a
+    temporary file and renamed, so a cut run leaves no partial
+    checkpoint."""
+    sd = reference_state_dict(name, model)
     tmp = f"{path}.tmp"
     torch.save({"state_dict": sd, "optimizer": optimizer.state_dict(),
                 "scheduler": scheduler.state_dict(), "step": step}, tmp)
@@ -249,7 +282,9 @@ def load_dinov2_state_dict(path: str) -> dict[str, torch.Tensor]:
 def roma_model_state_dict(roma_sd: Mapping, dinov2_sd: Mapping | None
                           ) -> dict[str, torch.Tensor]:
     """The port's RoMaMatcher state dict from a gim_roma checkpoint's state
-    dict and the DINOv2 one (None: the trunk's keys are left out)."""
+    dict and the DINOv2 one, whose keys replace any trunk keys the
+    checkpoint holds (a training checkpoint's 'model.dinov2.'); None: the
+    trunk's keys are the checkpoint's, if it has them."""
     out = dict(normalize_gim_roma(dict(roma_sd)))
     for k, v in (dinov2_sd or {}).items():
         out[DINOV2_PREFIX + k] = v

@@ -7,7 +7,10 @@ decoded frames). The CLI trains gim_loftr (full width, seeded weights) on a
 synthetic 8-frame 96 x 128 video with fabricated propagated labels at
 --img_size 64: 2 steps, then a resume to 4; the step-4 checkpoint loads
 through `Matcher.from_checkpoint`, from the file and from the directory.
-Without `--device cpu` and without CUDA the CLI raises. The loop's
+It trains gim_dkm, gim_roma and gim_lightglue the same way (gim_roma and
+gim_lightglue cut in depth and keypoints for the CPU), each checkpoint in
+the reference layout and loading through `Matcher.from_checkpoint`.
+Without `--device cpu` and without CUDA the CLI raises, for every head. The loop's
 non-finite guard undoes a step exactly (equal to a run that never took
 it) with "skip", and stops with "abort".
 """
@@ -23,7 +26,7 @@ from gim_tpu.data import walk as jwalk
 from gim_tpu.data.synthetic import write_synthetic_video as j_write_video
 from gim_tpu_torch.api import Matcher
 from gim_tpu_torch.cli import train as TR
-from gim_tpu_torch.config import GimConfig, LoFTRConfig
+from gim_tpu_torch.config import GimConfig, LoFTRConfig, replace
 from gim_tpu_torch.data import augment as taug
 from gim_tpu_torch.data import walk as twalk
 from gim_tpu_torch.data.synthetic import write_synthetic_video
@@ -171,13 +174,74 @@ def test_train_cli_trains_saves_resumes_and_loads(video, tmp_path, capsys):
 
 
 def test_train_cli_raises_without_cuda_and_for_later_heads(monkeypatch,
-                                                           tmp_path):
-    args = ["--labels_root", str(tmp_path), "--video", str(tmp_path / "v")]
-    with pytest.raises(NotImplementedError, match="6b"):
-        TR.main(args + ["--weight", "gim_dkm", "--device", "cpu"])
+                                                           video, tmp_path):
+    """Every head is ported: on the CPU each one gets as far as the label
+    store (empty here); without CUDA each one raises unless given
+    --device cpu."""
+    args = ["--labels_root", str(tmp_path / "empty"), "--video", video]
+    os.makedirs(tmp_path / "empty")
+    for weight in TR.DEFAULT_SIZES:
+        with pytest.raises(SystemExit, match="no propagated labels"):
+            TR.main(args + ["--weight", weight, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        TR.main(args + ["--weight", "gim_loftr"])
+    for weight in TR.DEFAULT_SIZES:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TR.main(args + ["--weight", weight])
+
+
+def small_head_config(weight: str, img_size: int) -> GimConfig:
+    """The CLI's configuration of each head, cut for the CPU where it would
+    take minutes: gim_roma at coarse_res 56 with 2 DINOv2 blocks and 1
+    decoder block, gim_lightglue at 128 keypoints. Widths stay."""
+    cfg = HEAD_CONFIG(weight, img_size)
+    if weight == "gim_roma":
+        cfg = replace(cfg, roma=replace(cfg.roma, coarse_res=56,
+                                        dino_depth=2, num_decoder_blocks=1))
+    if weight == "gim_lightglue":
+        cfg = replace(cfg, superpoint=replace(cfg.superpoint,
+                                              max_num_keypoints=128))
+    return cfg
+
+
+HEAD_CONFIG = TR.head_config
+
+
+@pytest.mark.parametrize("weight", ["gim_dkm", "gim_roma", "gim_lightglue"])
+def test_train_cli_trains_each_head_and_its_checkpoint_loads(
+        weight, video, tmp_path, monkeypatch, capsys):
+    """`cli.train --device cpu` for each later head (`small_head_config`)
+    on the synthetic store at --img_size 64: 2 steps with a save at 1, a
+    resume to 3; the step-3 checkpoint holds the reference layout and
+    loads through `Matcher.from_checkpoint`, which matches a pair."""
+    monkeypatch.setattr(TR, "head_config", small_head_config)
+    prop = str(tmp_path / "propagate")
+    _fabricate_propagated_pairs(prop, _frames(video))
+    ckpt = str(tmp_path / "ckpt")
+    common = ["--weight", weight, "--labels_root", prop, "--video", video,
+              "--img_size", "64", "--max_labels", "128", "--lr", "1e-4",
+              "--warmup_steps", "1", "--ckpt_dir", ckpt,
+              "--save_interval", "1", "--log_interval", "1",
+              "--augmentation", "none", "--prefetch", "0", "--device", "cpu"]
+    TR.main(common + ["--max_steps", "2"])
+    TR.main(common + ["--max_steps", "3"])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "[train] step 3 loss" in out
+    assert sorted(os.listdir(ckpt)) == [f"step_0000000{i}.ckpt"
+                                        for i in (1, 2, 3)]
+    saved = torch.load(os.path.join(ckpt, "step_00000003.ckpt"),
+                       weights_only=False)
+    prefixes = {k.split(".")[0] for k in saved["state_dict"]}
+    assert prefixes == ({"superpoint", "model"} if weight == "gim_lightglue"
+                        else {"model"})
+    cfg = small_head_config(weight, 64)
+    m = Matcher.from_checkpoint(weight, ckpt, cfg, device="cpu")
+    trained = TR.Trainer(cfg, 1, 1, 1, torch.device("cpu"), weight=weight)
+    trained.load(os.path.join(ckpt, "step_00000003.ckpt"))
+    for k, v in trained.model.state_dict().items():
+        assert torch.equal(v, m.model.state_dict()[k]), k
+    x = torch.rand(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    r = m.match(x, torch.roll(x, 3, -1))
+    assert torch.isfinite(r.kpts0).all() and torch.isfinite(r.kpts1).all()
 
 
 def _tiny_batch(seed=0, nan=False):

@@ -1,7 +1,9 @@
-"""gim_loftr's data-parallel training step on the CPU: two gloo processes
-at batch 1 each against the port's one process at batch 2 and against
-JAX's step at B = 2 (the port's counterpart of
-`__graft_entry__.dryrun_multichip` for gim_loftr's training).
+"""The data-parallel training steps on the CPU: two gloo processes at
+batch 1 each against the port's one process at batch 2 and, for
+gim_loftr, against JAX's step at B = 2 (the port's counterpart of
+`__graft_entry__.dryrun_multichip` for gim_loftr's training); the same
+for gim_dkm's and gim_lightglue's steps against one process (the last
+test).
 
 Each process joins a gloo group at tcp://localhost, takes its row of the
 batch and of JAX's GT-padding draws, and runs
@@ -41,6 +43,7 @@ from tests.test_torch_train_step import (B, F64, MAXM, NLAB, TCFG,
                                          jax_steps, make_batch, port_model,
                                          torch_batch)
 from tests.test_torch_loftr import make_variables
+from tests.torch_train_util import assert_leaves_close as assert_head_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 2
@@ -169,3 +172,122 @@ def test_two_process_step_equals_global_batch_and_jax(variables, tmp_path):
     want_sd = loftr_state_dict_from_jax(jv)
     assert_stats_close(sd, want_sd, F64["stats"])
     assert_update_close(params, want_sd, lr, F64["share"])
+
+
+# -- gim_dkm's and gim_lightglue's steps ------------------------------------
+
+def _head_model(weight: str):
+    """The head's model in train mode at a small size, seeded: gim_dkm at
+    h_resized = w_resized = 32 with float64 compute (float32 parameters;
+    its GP stays float32, as in JAX); gim_lightglue with 64 keypoints and
+    LightGlue at width 64, 3 layers."""
+    from gim_tpu_torch.cli.train import build_train_model
+    from gim_tpu_torch.config import (DKMConfig, GimConfig, LightGlueConfig,
+                                      SuperPointConfig)
+    from gim_tpu_torch.models.common import init_weights
+
+    if weight == "gim_dkm":
+        cfg = GimConfig(dkm=DKMConfig(h_resized=32, w_resized=32,
+                                      upsample_preds=False, dtype="float64"))
+    else:
+        cfg = GimConfig(superpoint=SuperPointConfig(max_num_keypoints=64),
+                        lightglue=LightGlueConfig(
+                            descriptor_dim=64, num_heads=4, n_layers=3,
+                            input_dim=256))
+    model = build_train_model(weight, cfg)
+    return cfg, init_weights(model, torch.Generator().manual_seed(11))
+
+
+def _head_step(weight, cfg, model, batch):
+    """One step of the head on a fresh optimizer; as `_one_step`."""
+    from gim_tpu_torch.train.dense_losses import dense_train_step
+    from gim_tpu_torch.train.lightglue_loop import lightglue_train_step
+
+    opt, sched = loop.make_optimizer(model.parameters(),
+                                     TrainerConfig(**TCFG), 1, B, 100)
+    lr = sched.get_last_lr()[0]
+    if weight == "gim_dkm":
+        logs = dense_train_step(model, opt, sched, batch)
+    else:
+        logs = lightglue_train_step(model, opt, sched, cfg, batch)
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    return ({k: float(v) for k, v in logs.items()}, grads,
+            {k: v.clone() for k, v in model.state_dict().items()},
+            {k: p.detach().clone() for k, p in model.named_parameters()}, lr)
+
+
+def _head_batch():
+    """2 pairs of blocky 64^2 images, image 1 rolled 6 px, 128 labels."""
+    rng = np.random.default_rng(8)
+    blocks = rng.random((B, 3, 16, 16)).astype(np.float32)
+    c0 = np.repeat(np.repeat(blocks, 4, 2), 4, 3)
+    p0 = rng.integers(0, 56, (B, 128, 2)) + 0.5
+    lab = np.concatenate([p0, p0 + [6.0, 0.0]], -1).astype(np.float32)
+    return {"color0": torch.from_numpy(c0),
+            "color1": torch.from_numpy(np.roll(c0, 6, axis=-1)),
+            "labels": torch.from_numpy(lab),
+            "label_valid": torch.from_numpy(rng.random((B, 128)) < 0.9)}
+
+
+def _head_worker(rank: int, port: int, workdir: str, weight: str):
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=WORLD)
+    try:
+        cfg, model = _head_model(weight)
+        model.load_state_dict(torch.load(os.path.join(workdir, "sd.pt")))
+        batch = {k: v[rank:rank + 1] for k, v in _head_batch().items()}
+        out = _head_step(weight, cfg, model, batch)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("weight", ["gim_dkm", "gim_lightglue"])
+def test_two_process_head_step_equals_global_batch(weight, tmp_path):
+    """Two gloo processes of 1 pair each against one process of 2 pairs:
+    the same losses (the normalisers are the global batch's: labelled
+    cells and class masses, the detector's cells, the descriptor and NLL
+    counts, the pad draws' rows), gradients, statistics and update.
+    Tolerances: losses rtol 1e-5, each gradient leaf within 1e-4 of its
+    norm (the biases before a train-mode BatchNorm, zero by construction,
+    below 1e-4 of the whole's), statistics within 1e-6 of each leaf's largest magnitude, >=
+    99.9 % of the parameters within 1e-2 lr after the update."""
+    cfg, model = _head_model(weight)
+    torch.save(model.state_dict(), tmp_path / "sd.pt")
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    code = ("import sys; from tests.test_torch_train_ddp import _head_worker;"
+            " _head_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], "
+            "sys.argv[4])")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port),
+                               str(tmp_path), weight], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(WORLD)]
+    try:
+        single = _head_step(weight, cfg, model, _head_batch())
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(WORLD)]
+    for k, v in ranks[0][2].items():
+        assert torch.equal(v, ranks[1][2][k]), k
+    logs, grads, sd, params, lr = ranks[0]
+    assert set(logs) == set(single[0])
+    for k in logs:
+        np.testing.assert_allclose(logs[k], single[0][k], rtol=1e-5,
+                                   err_msg=k)
+    nonzero = {k for k, g in single[1].items() if g.any()}
+    assert len(nonzero) > 0.9 * len(single[1])
+    assert_head_leaves({k: grads[k] for k in nonzero},
+                       {k: single[1][k].numpy() for k in nonzero}, 1e-4,
+                       1e-4, "gradient vs one")
+    if weight == "gim_dkm":
+        assert_stats_close(sd, single[2], 1e-6)
+    assert_update_close(params, single[2], lr, 0.999)
