@@ -102,7 +102,46 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    step-2 checkpoint to 4 that equals the uninterrupted run (torch's
    deterministic mode); `Matcher.from_checkpoint` loads the result and
    matches a pair; one step under a one-process NCCL group equals the same
-   step without a group.
+   step without a group;
+20-22. the training steps of gim_dkm (672^2, with GIM_TPU_FUSED_REFINER=1,
+   which training bypasses), gim_roma (672^2, full ViT-L/14, switches off;
+   then one step's loss with GIM_TPU_FLASH_VIT=1: 29 K3 launches and a
+   backward that raises `KernelBackwardError`) and gim_lightglue (1024^2,
+   2048 keypoints) through the training CLI's `Trainer` at the JAX CLI's
+   operating points, float32, TF32 off, 20000 labels: 3 warm-up and 5
+   timed steps, ms per step, pairs/s, peak memory, stage times (CUDA
+   events at forward hooks) and a profile; no kernel launch asserted;
+23. each of those steps on the card against the CPU at the CPU tests'
+   sizes and tolerances (the dense heads in a float64 config and in
+   float32, gim_lightglue in float32);
+24. each head's `train_loop` with a save at 2: the step-2 checkpoint
+   restores the run's state exactly, and a resume to step 4 (torch's
+   deterministic mode) equals the uninterrupted run bit for bit, losses
+   and state, for every head, with no deterministic-mode warning naming
+   `grid_sampler_2d_backward`; `Matcher.from_checkpoint` loads the result;
+25. K1, K2 and K3 on the card with inputs that need a gradient: forward
+   against the plain version, and a backward that raises;
+26. the sampling backward (`ops.sampling.BilinearSample`) on the inputs of
+   one gim_dkm step at 672^2 (local correlation, warps) and one
+   gim_lightglue step at 1024^2 (`sample_descriptors`): the same bits in
+   two runs, against `aten.grid_sampler_2d_backward` within 1e-4 of the
+   largest magnitude in float32 and 1e-12 in float64, ms and peak memory
+   of both; then phases 20-22's step times, which ran with it;
+27. ZEB across two processes on the one card: this script twice with
+   `--zeb-worker`, in a gloo group, each running phase 13's matcher on its
+   strided share of phase 13's pairs, the rows gathered through the
+   group's store; rank 0's dump equals phase 13's row for row; each
+   process's ms per pair and peak memory;
+28. the video factory on frames given as arrays (the card's machine has no
+   cv2): the full-width segmenter on 4 frames of 640 x 360 (ms per frame,
+   peak memory; one frame against the CPU), the per-pair labelling body
+   `cli.video_preprocessor.label_pair` with the full-width gim_dkm at 840
+   in float32 on the masked frames (labels kept, ms per stage), the
+   fundamental filter (1024 hypotheses) at the matcher's label count and
+   at 8192 planted labels against the CPU with the card's uniforms, and
+   `Propagator.propagate_pair` over planted stores at skips 10/20/40
+   (about 5000 labels a pair on 1280-wide frames) with the compiled chain
+   linker, asserted to be the one that ran.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}.
@@ -218,6 +257,19 @@ HEAD_CHECK_TOL = {
                           share=0.999)}
 # the later heads' training loop (phase 24): 4 steps with a save at 2
 HEAD_LOOP_IMG = {"gim_dkm": 256, "gim_roma": 224, "gim_lightglue": 256}
+# the sampling backward (phase 26), of the largest magnitude: float32
+# against aten's float32 backward (source coordinates up to 672 pixels
+# carry a float32 rounding of 6.1e-5 pixels, so the bilinear weights carry
+# about 1e-5; 1.53e-5 measured on the warp), float64 against aten's float64
+SAMPLE_TOL_F32, SAMPLE_TOL_F64 = 1e-4, 1e-12
+# the factory (phase 28): 1280 x 720 video, frames at the segmenter's 640
+# (gim_tpu/models/semseg.py:152), matched by gim_dkm at 840 (the factory's
+# img_size); the fundamental filter also at 8192 planted labels; planted
+# stores of 5000 tracks a pair; the segmenter's card-against-CPU tolerance
+FACTORY_VIDEO_W, FACTORY_VIDEO_H = 1280, 720
+FACTORY_FRAME, FACTORY_FRAMES, FACTORY_IMG = (360, 640), 4, 840
+FACTORY_PLANTED, FACTORY_TRACKS = 8192, 5000
+SEG_TOL = 1e-4
 
 
 def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
@@ -301,6 +353,8 @@ class Smoke:
         self.card = ""
         self.dev = "cuda"     # phases 12-16 read it; main() needs CUDA
         self.lg_batch = LG_BATCH      # phase 14 settles it, 16 reads it
+        self.zeb_dump = None          # phase 13 writes it, 27 reads it
+        self.head_step_ms = {}        # phases 20-22 write them, 26 reads
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -1576,30 +1630,19 @@ class Smoke:
         import numpy as np
         import torch
 
-        from gim_tpu_torch.api import Matcher
         from gim_tpu_torch.cli.analysis import read_dump
-        from gim_tpu_torch.config import GimConfig, LoFTRConfig
         from gim_tpu_torch.eval import zeb as E
         from gim_tpu_torch.ops.kernels import dsmax as K
 
         n_hyp, use_conf = E.RANSAC_ZOO["MAGSAC"]
-        cfg = GimConfig(loftr=LoFTRConfig(
-            fused_matching=True, max_matches=ZEB_MATCHES,
-            match_threshold=0.0))
-        m = Matcher("gim_loftr", cfg, generator=torch.Generator()
-                    .manual_seed(0), device=self.dev)
-        rng = np.random.default_rng(13)
-        batches = [zeb_batch(rng, i) for i in range(ZEB_PAIRS + 1)]
+        m = zeb_matcher(self.dev)
+        batches = zeb_batches()
         match_s, match_peak = [], []
-
-        def args(batch):
-            return tuple(batch[k] for k in ("color0", "color1", "scale0",
-                                            "scale1", "mask0", "mask1"))
 
         def match(batch):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            r = m.match(*args(batch))
+            r = m.match(*zeb_args(batch))
             torch.cuda.synchronize()
             match_s.append(time.perf_counter() - t0)
             match_peak.append(torch.cuda.max_memory_allocated())
@@ -1656,6 +1699,8 @@ class Smoke:
         with tempfile.TemporaryDirectory() as d:
             path = E.write_dump(rows, d, "gim_loftr", "ZEB-memory", "smoke")
             det = read_dump(path)
+            with open(path) as f:
+                self.zeb_dump = f.read()          # phase 27 holds to it
         under5 = np.mean([max(float(a), float(b)) < 5.0 for a, b in
                           zip(det["R_errs"], det["t_errs"])])
         print(f"  dump: {len(det['R_errs'])} rows read back by "
@@ -1663,7 +1708,7 @@ class Smoke:
               f"share of pairs under 5 deg {under5:.3f} (seeded random "
               f"weights: no quality claim)")
         assert len(det["R_errs"]) == ZEB_PAIRS
-        self.stages(m, args(batches[1]))
+        self.stages(m, zeb_args(batches[1]))
         self.profile(lambda: E.evaluate(match, iter(batches[1:2]),
                                         num_hypotheses=n_hyp,
                                         use_conf=use_conf, progress=False),
@@ -2255,6 +2300,7 @@ class Smoke:
             print(f"  kernel launches over {len(losses)} steps: {counts}")
             assert not any(counts.values()), counts
             ms = statistics.median(times) * 1e3
+            self.head_step_ms[weight] = ms
             print(f"  {weight} training step, 1 pair of {S}^2, float32, TF32 "
                   f"off, {TRAIN_LABELS} labels: median {ms:.2f} ms per step "
                   f"(runs {[round(t * 1e3, 2) for t in times]}), "
@@ -2485,8 +2531,10 @@ class Smoke:
         the host, full depth being phase 21's): 4 steps
         with a save at 2; a trainer of other weights loads the step-2
         checkpoint and holds exactly the uninterrupted run's step-2 state,
-        then runs to 4 (torch's deterministic mode; the largest difference
-        from the uninterrupted run printed, the losses within rtol 1e-3);
+        then runs to 4 (torch's deterministic mode) and equals the
+        uninterrupted run bit for bit, losses and state, for every head,
+        with no deterministic-mode warning naming `grid_sampler_2d_backward`
+        (the port's `ops.sampling.BilinearSample` takes its place);
         `Matcher.from_checkpoint` loads the step-4 file and matches a
         pair."""
         import tempfile
@@ -2545,7 +2593,7 @@ class Smoke:
                       f"{[round(x['loss'], 6) for x in la[2:]]} (worst rel "
                       f"{worst:.2e}), largest state difference {after:.3g}"
                       f"{' (bit for bit)' if after == 0 else ''}")
-                assert worst <= 1e-3, worst
+                assert after == 0.0 and worst == 0.0, (after, worst)
                 m = Matcher.from_checkpoint(weight, d, cfg, device=self.dev)
                 sd = a.model.state_dict()
                 for k, v in m.model.state_dict().items():
@@ -2561,6 +2609,7 @@ class Smoke:
                             for w in warned})
             for n in notes:
                 print(f"  deterministic mode: {n}")
+            assert not any("grid_sampler" in n for n in notes), notes
 
     def kernels_refuse_backward(self):
         """Phase 25: K1 (dual_softmax_mutual), K2 (fused_dw_block) and K3
@@ -2628,6 +2677,394 @@ class Smoke:
                 raise AssertionError(f"a backward through {name} did not "
                                      "raise")
             assert all(t.grad is None for t in tensors)
+
+
+    # -- 26-28: the sampling backward, ZEB across processes, the factory --
+    def sampling_backward(self):
+        """Phase 26: the port's bilinear-sampling backward
+        (`ops.sampling.sample_backward`, through `BilinearSample`) on the
+        inputs of one training step: gim_dkm at phase 20's point (its local
+        correlation and its warps) and gim_lightglue at phase 22's
+        (`sample_descriptors`), recorded as the step runs. For each call:
+        two runs give the same bits, and the gradients agree with
+        `aten.grid_sampler_2d_backward` (atomics) on the same output
+        gradient, of their largest magnitude: in float32 within
+        SAMPLE_TOL_F32, and run again in float64 within SAMPLE_TOL_F64.
+        Both float32 backwards' errors against aten's float64 one are
+        printed: at a source coordinate that is an exact integer the grid
+        gradient jumps, and float32 and float64 may take either side. The
+        ms and peak memory of both, summed over the step's calls of each
+        kind; then phases 20-22's step times, which ran with this
+        backward."""
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.cli.train import head_config
+        from gim_tpu_torch.ops import sampling
+
+        calls = []
+        real = sampling.BilinearSample.apply
+
+        def record(image, grid, align, mode):
+            names = {f.name for f in traceback.extract_stack()}
+            kind = ("local correlation" if "local_correlation" in names
+                    else "sample_descriptors"
+                    if "sample_descriptors" in names else "warp")
+            calls.append((kind, image.detach(), grid.detach(), align, mode))
+            return real(image, grid, align, mode)
+
+        for weight in ("gim_dkm", "gim_lightglue"):
+            S = HEAD_TRAIN_IMG[weight]
+            tr = self.head_trainer(weight, head_config(weight, S))
+            batch = train_batch(np.random.default_rng(20), 1, S,
+                                TRAIN_LABELS, self.dev)
+            sampling.BilinearSample.apply = record
+            try:
+                with torch.enable_grad():
+                    tr.step(batch)
+            finally:
+                del sampling.BilinearSample.apply
+            del tr
+        kinds = collections.defaultdict(list)
+        for c in calls:
+            kinds[c[0]].append(c)
+        g = torch.Generator(device=self.dev).manual_seed(26)
+        for kind, cs in kinds.items():
+            tot = {"port": 0.0, "aten": 0.0}
+            peak = {"port": 0, "aten": 0}
+            # port, aten in float32 against aten's float64; port against
+            # aten in float32; port against aten in float64
+            worst = [0.0, 0.0, 0.0, 0.0]
+            shapes = collections.Counter()
+            for _, image, grid, align, mode in cs:
+                N, C = image.shape[:2]
+                gout = torch.randn((N, C, *grid.shape[1:3]), generator=g,
+                                   device=self.dev)
+                mode_i = {"zeros": 0, "border": 1}[mode]
+
+                def port():
+                    return sampling.sample_backward(image, grid, gout, align,
+                                                    mode)
+
+                def aten():
+                    return torch.ops.aten.grid_sampler_2d_backward(
+                        gout, image, grid, 0, mode_i, align, [True, True])
+
+                a, b = port(), port()
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), kind
+                want = aten()
+                wide = (gout.double(), image.double(), grid.double())
+                exact = torch.ops.aten.grid_sampler_2d_backward(
+                    *wide, 0, mode_i, align, [True, True])
+                port64 = sampling.sample_backward(wide[1], wide[2], wide[0],
+                                                  align, mode)
+                for x, y, z, x64 in zip(a, want, exact, port64):
+                    scale = float(z.abs().max())
+                    errs = [float((t.double() - z).abs().max()) / scale
+                            for t in (x, y)]
+                    errs.append(float((x - y).abs().max())
+                                / float(y.abs().max()))
+                    errs.append(float((x64 - z).abs().max()) / scale)
+                    worst = [max(w, e) for w, e in zip(worst, errs)]
+                    assert (errs[2] <= SAMPLE_TOL_F32
+                            and errs[3] <= SAMPLE_TOL_F64), (
+                        kind, tuple(image.shape), tuple(grid.shape), errs)
+                del wide, exact, port64
+                for name, fn in (("port", port), ("aten", aten)):
+                    tot[name] += cuda_ms(fn, 3)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    fn()
+                    torch.cuda.synchronize()
+                    peak[name] = max(peak[name],
+                                     torch.cuda.max_memory_allocated() - base)
+                shapes[(tuple(image.shape), tuple(grid.shape))] += 1
+            print(f"  {kind}: {len(cs)} calls of one step, bit-identical in "
+                  f"two runs; against aten's backward within {worst[2]:.2e} "
+                  f"of the largest magnitude in float32 (limit "
+                  f"{SAMPLE_TOL_F32:.0e}) and {worst[3]:.2e} in float64 "
+                  f"(limit {SAMPLE_TOL_F64:.0e}); float32 against aten's "
+                  f"float64, port {worst[0]:.2e}, aten {worst[1]:.2e}; "
+                  f"backward "
+                  f"{tot['port']:.3f} ms (port) against {tot['aten']:.3f} "
+                  f"ms (aten), peak above the inputs "
+                  f"{peak['port'] / 2**20:.1f} against "
+                  f"{peak['aten'] / 2**20:.1f} MiB [{self.card}]")
+            for (ish, gsh), n in sorted(shapes.items()):
+                print(f"    image {ish}, grid {gsh}: {n}")
+        calls.clear()
+        print(f"  phases 20-22's median step, with this backward: "
+              + ", ".join(f"{w} {ms:.2f} ms"
+                          for w, ms in self.head_step_ms.items())
+              + f" [{self.card}]")
+
+    def zeb_two_processes(self):
+        """Phase 27: ZEB across two processes on the one card. Each process
+        (this script with `--zeb-worker`) joins a gloo group, builds phase
+        13's gim_loftr (`zeb_matcher`), runs `eval.zeb.evaluate` on its
+        strided share (`parallel.mesh.process_local_pairs`) of phase 13's
+        pairs, then `gather_rows_multihost` and `barrier_multihost` (the
+        group's store; no NCCL, which refuses two ranks on one card).
+        Rank 0's dump must equal phase 13's one-process dump row for row;
+        rank 1 writes none. Both processes' ms per pair and peaks."""
+        import gc
+        import tempfile
+
+        import torch
+
+        assert self.zeb_dump is not None, "phase 13 wrote no dump"
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f}"
+              f" GiB of the card while the workers run "
+              f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB in live "
+              f"tensors)")
+        port = free_port()
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--zeb-worker", str(r), str(port), d],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(2)]
+            try:
+                outs = [p.communicate(timeout=900)[0] for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+            wall = time.perf_counter() - t0
+            for r, (p, o) in enumerate(zip(procs, outs)):
+                for line in o.strip().splitlines()[-6:]:
+                    print(f"    rank {r}: {line}")
+                assert p.returncode == 0, f"rank {r} exited {p.returncode}"
+            stats = []
+            for r in range(2):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    stats.append(json.load(f))
+            dumps = [f for f in os.listdir(d) if f.endswith(".txt")]
+            assert len(dumps) == 1, dumps                   # rank 0's only
+            with open(os.path.join(d, dumps[0])) as f:
+                got = f.read()
+        for st in stats:
+            print(f"  rank {st['rank']}: {st['pairs']} pairs, "
+                  f"{st['ms_per_pair']:.2f} ms per pair, peak "
+                  f"{st['peak_gib']:.2f} GiB [{self.card}]")
+        print(f"  two processes on one card: {wall:.1f} s from spawn to "
+              f"exit")
+        want = self.zeb_dump
+        if got != want:
+            a = [l.split() for l in want.splitlines()]
+            b = [l.split() for l in got.splitlines()]
+            print(f"  rows differ from phase 13's: {len(a)} against "
+                  f"{len(b)} lines")
+            worst = 0.0
+            for x, y in zip(a[1:], b[1:]):
+                for u, v in zip(x[1:], y[1:]):
+                    try:
+                        worst = max(worst, abs(float(u) - float(v)))
+                    except ValueError:
+                        pass
+            print(f"  largest difference in a numeric column: {worst:.4g} "
+                  f"(cuDNN may pick another convolution algorithm when "
+                  f"two processes share the card's memory)")
+        assert got == want, "rank 0's dump differs from phase 13's"
+        print(f"  rank 0's dump equals phase 13's one-process dump row for "
+              f"row ({len(want.splitlines()) - 1} pairs)")
+
+    def factory(self):
+        """Phase 28: the video factory on the card, on frames given as
+        arrays (the card's machine has no cv2): 4 frames of 640 x 360
+        (1280 x 720 video at the segmenter's 640; vratio 2), a blocky
+        texture moved 8 px a frame.
+        - The full-width `SegmentationModel` (deep-stem dilated ResNet-50,
+          PPM, 150 classes): ms per frame and peak memory; one frame
+          against the CPU (logits within SEG_TOL of the largest
+          magnitude, class maps equal where the top-two margin exceeds
+          it).
+        - The per-pair body `cli.video_preprocessor.label_pair` with the
+          full-width `Matcher("gim_dkm")` at 840, float32, on the masked
+          frames (masks from the segmenter on the card): labels kept and
+          ms per stage.
+        - `data.walk.onchip_fundamental_filter` (1024 hypotheses) at the
+          label count the matcher gives and at 8192, on planted two-view
+          labels, against the same call on the CPU with the card's
+          uniforms (inlier masks on >= MASK_AGREE); ms per pair.
+        - `Propagator.propagate_pair` over planted stores at skips
+          10/20/40 (about 5000 labels a pair on 1280-wide frames) with
+          the compiled chain linker, asserted to be the one that ran, and
+          the filter on the card: labels kept and ms per stage."""
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch import native
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.cli.video_preprocessor import (
+            label_pair, remove_static_matches)
+        from gim_tpu_torch.data.synthetic import write_planted_label_stores
+        from gim_tpu_torch.data.walk import (PropagationConfig, Propagator,
+                                             onchip_fundamental_filter)
+        from gim_tpu_torch.geometry.ransac import draw_noise
+        from gim_tpu_torch.models.semseg import (MASKED_CLASSES,
+                                                 build_segmenter)
+        from gim_tpu_torch.ops.image import preprocess_image
+
+        dev = self.dev
+        rng = np.random.default_rng(28)
+        h, w = FACTORY_FRAME
+        tex = np.repeat(np.repeat(rng.integers(0, 256, (h // 4, w // 4 + 10,
+                                                         3), np.uint8),
+                                  4, 0), 4, 1)
+        frames = [np.ascontiguousarray(tex[:, 8 * k:8 * k + w])
+                  for k in range(FACTORY_FRAMES)]
+        vratio = np.array([[FACTORY_VIDEO_W / w, FACTORY_VIDEO_H / h]],
+                          np.float32)
+
+        # the segmenter
+        seg = build_segmenter(generator=torch.Generator().manual_seed(0),
+                              device=dev)
+        x = [torch.from_numpy(f).to(dev).permute(2, 0, 1)[None].float() / 255
+             for f in frames]
+        with torch.no_grad():
+            seg(x[0])                                       # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ts = []
+            for xi in x:
+                t0 = time.perf_counter()
+                logits = seg(xi)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  segmenter (150 classes) on {len(frames)} frames of {w} x "
+              f"{h}: median {statistics.median(ts):.2f} ms per frame (runs "
+              f"{[round(t, 2) for t in ts]}), peak {peak / 2**30:.2f} GiB "
+              f"[{self.card}]")
+        cpu = build_segmenter(generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+        with torch.no_grad():
+            want = cpu(x[-1].cpu())
+        got = logits.cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        top2 = want.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > SEG_TOL * scale
+        same = bool((got.argmax(1) == want.argmax(1))[clear].all())
+        print(f"  card against CPU on one frame: logits within {err:.2e} of "
+              f"the largest magnitude; class maps equal on the "
+              f"{float(clear.double().mean()):.4f} of pixels whose top-two "
+              f"margin exceeds {SEG_TOL:g}: {same}")
+        assert got.shape == (1, 150, h, w) and err <= SEG_TOL and same
+        del cpu
+
+        classes = torch.tensor(list(MASKED_CLASSES.values()), device=dev)
+
+        @torch.no_grad()
+        def segment(rgb):          # frames at the segmenter's size
+            t = torch.from_numpy(rgb).to(dev).permute(2, 0, 1)[None]
+            return torch.isin(seg(t.float() / 255).argmax(1)[0],
+                              classes).cpu().numpy()
+
+        # the per-pair body with gim_dkm
+        m = Matcher("gim_dkm", device=dev)
+
+        @torch.no_grad()
+        def match(rgb0, rgb1):
+            p = [preprocess_image(r, FACTORY_IMG, 8, True, dev)
+                 for r in (rgb0, rgb1)]
+            r = m.match(p[0].color[None], p[1].color[None],
+                        p[0].scale[None], p[1].scale[None],
+                        p[0].mask[None], p[1].mask[None])
+            return r.numpy_pair(0)
+
+        for k in range(FACTORY_FRAMES - 1):
+            st, t = {}, [time.perf_counter()]
+
+            def mark(name):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                st[name] = round((now - t[0]) * 1e3, 2)
+                t[0] = now
+
+            out = label_pair(frames[k], frames[k + 1], match, vratio,
+                             segment, device=dev, stages=mark)
+            assert out is not None, "a mask covered a whole frame"
+            labels, n = out
+            assert labels.dtype == np.float32 and labels.shape[1:] == (4,)
+            assert np.isfinite(labels).all()
+            print(f"  pair {k}-{k + 1}{' (warm-up)' if k == 0 else ''}: "
+                  f"{n} gim_dkm matches at {FACTORY_IMG}, {len(labels)} "
+                  f"labels kept; ms per stage {st} [{self.card}]")
+
+        # the fundamental filter, card against CPU
+        masked = [f * ~segment(f)[..., None] for f in frames[:2]]
+        k0, k1, _ = match(*masked)
+        keep = remove_static_matches(k0, k1)
+        n_match = int(keep.sum())
+        for n in (n_match, FACTORY_PLANTED):
+            p0, p1, _, _, _ = gt_scene(rng, n, n, 0.7, ZEB_NOISE_PX)
+            M = 1 << int(np.ceil(np.log2(max(n, 8))))
+            noise = draw_noise([torch.Generator(dev).manual_seed(n)], 1024,
+                               M, dev)
+            card = onchip_fundamental_filter(p0, p1, 0.5, device=dev,
+                                             noise=noise)
+            own = onchip_fundamental_filter(p0, p1, 0.5, device=dev)
+            host = onchip_fundamental_filter(
+                p0, p1, 0.5, device="cpu",
+                noise=tuple(t.cpu() for t in noise))
+            agree = float((card == host).mean())
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                onchip_fundamental_filter(p0, p1, 0.5, device=dev)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            print(f"  fundamental filter, {n} planted labels (M = {M}): "
+                  f"{int(card.sum())} kept on the card, masks agree with "
+                  f"the CPU on {agree:.4f}; its own draws give the same "
+                  f"mask: {bool(np.array_equal(own, card))}; median "
+                  f"{statistics.median(ts):.2f} ms per pair [{self.card}]")
+            assert np.array_equal(own, card) and agree >= MASK_AGREE
+        t0 = time.perf_counter()
+        kept = onchip_fundamental_filter(k0[keep], k1[keep], 0.5, device=dev)
+        print(f"  on the matcher's {n_match} labels: {int(kept.sum())} kept "
+              f"in {(time.perf_counter() - t0) * 1e3:.2f} ms")
+
+        # propagation over planted stores
+        spent = []
+
+        def timed_filter(a, b, thr):
+            t0 = time.perf_counter()
+            keep = onchip_fundamental_filter(a, b, thr, device=dev)
+            spent.append(((time.perf_counter() - t0) * 1e3, len(a),
+                          int(keep.sum())))
+            return keep
+
+        with tempfile.TemporaryDirectory() as d:
+            stores = write_planted_label_stores(
+                os.path.join(d, "seq"), width=FACTORY_VIDEO_W,
+                height=FACTORY_VIDEO_H, n_tracks=FACTORY_TRACKS)
+            prop = Propagator({s: [st] for s, st in stores.items()},
+                              FACTORY_VIDEO_W, PropagationConfig(),
+                              os.path.join(d, "propagate"))
+            for k in native.CALLS:
+                native.CALLS[k] = 0
+            for i0, i1 in ((0, 100), (10, 110), (20, 120)):
+                spent.clear()
+                t0 = time.perf_counter()
+                out = prop.propagate_pair(i0, i1,
+                                          ransac_filter=timed_filter)
+                total = (time.perf_counter() - t0) * 1e3
+                assert out is not None, (i0, i1)
+                f_ms, n_in, n_kept = spent[0]
+                print(f"  propagate_pair({i0}, {i1}): {n_in} chained labels, "
+                      f"{n_kept} kept; chaining {total - f_ms:.2f} ms (host), "
+                      f"filter {f_ms:.2f} ms (card) [{self.card}]")
+        calls = dict(native.CALLS)
+        print(f"  chain linker calls: {calls} (library "
+              f"{native.library_path().name})")
+        assert calls["compiled"] > 0 and calls["numpy"] == 0, calls
 
 
 class Marks:
@@ -2757,6 +3194,34 @@ def zeb_batch(rng, i: int) -> dict:
             "covisible0": [0.5], "covisible1": [0.5]}
 
 
+def zeb_batches() -> list[dict]:
+    """Phase 13's ZEB_PAIRS + 1 in-memory pairs (the first a warm-up)."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    return [zeb_batch(rng, i) for i in range(ZEB_PAIRS + 1)]
+
+
+def zeb_args(batch: dict) -> tuple:
+    return tuple(batch[k] for k in ("color0", "color1", "scale0", "scale1",
+                                    "mask0", "mask1"))
+
+
+def zeb_matcher(dev):
+    """ZEB's gim_loftr (phases 13 and 27): full width, seeded weights,
+    float32, fused matching (K1's float32 sweeps), ZEB_MATCHES slots at
+    threshold 0."""
+    import torch
+
+    from gim_tpu_torch.api import Matcher
+    from gim_tpu_torch.config import GimConfig, LoFTRConfig
+
+    cfg = GimConfig(loftr=LoFTRConfig(
+        fused_matching=True, max_matches=ZEB_MATCHES, match_threshold=0.0))
+    return Matcher("gim_loftr", cfg, generator=torch.Generator()
+                   .manual_seed(0), device=dev)
+
+
 def train_batch(rng, B: int, S: int, n_labels: int, device) -> dict:
     """B training pairs of S^2 blocky texture: image 1 is image 0 with its
     left half moved 8 px and its right half 24 px (phase 13's two planes),
@@ -2813,7 +3278,56 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def zeb_worker(rank: int, port: int, out: str, dev: str = "cuda") -> int:
+    """One process of phase 27: a gloo group of two at tcp://localhost:port,
+    phase 13's matcher on this rank's strided share of phase 13's pairs,
+    the rows gathered through the group's store, rank 0's dump and each
+    rank's figures written to `out`."""
+    import torch
+    import torch.distributed as dist
+
+    from gim_tpu_torch.eval import zeb as E
+    from gim_tpu_torch.parallel.mesh import process_local_pairs
+    from gim_tpu_torch.utils.device import set_tf32
+
+    set_tf32(False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        n_hyp, use_conf = E.RANSAC_ZOO["MAGSAC"]
+        m = zeb_matcher(dev)
+        mine = process_local_pairs(zeb_batches()[1:])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows = E.evaluate(lambda b: m.match(*zeb_args(b)), iter(mine),
+                          num_hypotheses=n_hyp, use_conf=use_conf,
+                          progress=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows = E.gather_rows_multihost(rows)
+        E.barrier_multihost("chip_smoke_zeb")
+        if rank == 0:
+            E.write_dump(rows, out, "gim_loftr", "ZEB-memory", "smoke")
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "pairs": len(mine),
+                       "ms_per_pair": dt * 1e3 / len(mine),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30},
+                      f)
+        print(f"rank {rank}: {len(mine)} pairs, {len(rows)} rows gathered")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
+    # phase 27 runs two more processes on the card beside this one: with
+    # segments that grow and shrink, empty_cache hands back what earlier
+    # phases cached even where a few small tensors stay live in a segment
+    # (with fixed segments this process kept 19.4 GiB for 0.07 GiB of live
+    # tensors after phase 26 on an H100 80GB, and a worker's cuDNN took
+    # another algorithm)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -2833,7 +3347,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    torch.set_grad_enabled(False)   # inference; phases 17-25 enable it
+    if sys.argv[1:2] == ["--zeb-worker"]:          # phase 27's processes
+        return zeb_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    torch.set_grad_enabled(False)   # inference; phases 17-26 enable it
     t0 = time.perf_counter()
     s = Smoke()
     s.phase("1 environment", s.environment)
@@ -2869,6 +3385,10 @@ def main() -> int:
                 s.head_train_loop)
         s.phase("25 the kernels refuse a backward on the card",
                 s.kernels_refuse_backward)
+        s.phase("26 the sampling backward", s.sampling_backward)
+        s.phase("27 ZEB across two processes on one card",
+                s.zeb_two_processes)
+        s.phase("28 the video factory", s.factory)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

@@ -138,7 +138,8 @@ class Matcher:
         the checkpoint's weights (a training checkpoint holds them) or else
         seeded random ones. `ckpt_path` may also be a directory of the
         training CLI's checkpoints (`cli/train.py`, every head), of which
-        the latest step loads."""
+        the latest step loads, or a file of `cli/convert_ckpt.py`, which
+        holds the model's state dict as it is."""
         _check_name(name)
         resolve_device(device)
         if name == "root_sift":
@@ -147,7 +148,11 @@ class Matcher:
         if path is None:
             raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
         ckpt_path = path
-        raw = port.load_torch_state_dict(ckpt_path)
+        kind, raw = port.load_checkpoint(ckpt_path)
+        if kind is not None:                  # cli/convert_ckpt.py's output
+            if kind != name:
+                raise ValueError(f"{ckpt_path} holds {kind}, not {name}")
+            return cls(name, cfg, state_dict=raw, device=device)
         side = os.path.join(os.path.dirname(ckpt_path),
                             "dinov2_vitl14_pretrain.pth")
         dino = (port.load_dinov2_state_dict(side)

@@ -7,7 +7,10 @@ The reference's surface (test.py:64-128):
 writes `dump/zeb/[T] {weight} {scene:>15} {version}.txt` and prints the
 aggregate AUC. `--synthetic` writes a small two-plane benchmark first (no
 dataset download). It runs on the GPU unless `--device cpu` is given,
-and raises without one. One process only.
+and raises without one. Under torchrun each process evaluates its share
+of the pairs (`parallel.mesh.process_local_pairs`), the rows meet
+through the process group's store, and rank 0 writes the dump:
+`torchrun --nproc_per_node 2 -m gim_tpu_torch.cli.zeb_eval ...`.
 """
 
 from __future__ import annotations
@@ -111,9 +114,13 @@ def main(argv=None):
     from gim_tpu_torch.data import zeb as Z
     from gim_tpu_torch.eval import zeb as E
     from gim_tpu_torch.geometry.pose import error_auc_trapezoid
+    from gim_tpu_torch.parallel.mesh import (init_from_env,
+                                             process_local_pairs, rank,
+                                             world_size)
     from gim_tpu_torch.utils.device import resolve_device
 
-    resolve_device(args.device)           # no CUDA and no --device cpu: raise
+    dev = resolve_device(args.device)     # no CUDA and no --device cpu: raise
+    init_from_env(dev, backend="gloo")    # under torchrun: join its group
 
     # skip-if-dump-exists (ref test.py:224-230)
     spec = Z.BENCHMARKS[args.tests]
@@ -139,9 +146,14 @@ def main(argv=None):
                              seq=args.seq)
     if not pairs:
         raise SystemExit(f"no pairs found under {args.data_root}/zeb")
-    E.barrier_multihost("zeb_eval_start")
-    print(f"[zeb_eval] {len(pairs)} pairs, img_size {img_size}, "
-          f"device {args.device}")
+    # across processes (torchrun): the pair list sharded by process, the
+    # padded repeats at the tail dropped by the dedup after the gather
+    n_proc, pid = world_size(), rank()
+    if n_proc > 1:
+        E.barrier_multihost("zeb_eval_start")
+        pairs = process_local_pairs(pairs)
+    print(f"[zeb_eval] {len(pairs)} pairs (proc {pid}/{n_proc}), "
+          f"img_size {img_size}, device {args.device}")
 
     match = build_matcher(args.weight, args.ckpt, img_size, args.dtype,
                           args.device)
@@ -166,9 +178,10 @@ def main(argv=None):
     print(f"[zeb_eval] {len(rows_u)} unique pairs in {dt:.1f}s "
           f"({len(rows_u) / dt:.2f} pairs/s)")
 
-    path = E.write_dump(rows, args.out_dir, args.weight, spec.scene,
-                        args.version)
-    print(f"[zeb_eval] wrote {path}")
+    if pid == 0:
+        path = E.write_dump(rows, args.out_dir, args.weight, spec.scene,
+                            args.version)
+        print(f"[zeb_eval] wrote {path}")
 
     aucs = error_auc_trapezoid([r["R_errs"] for r in rows_u],
                                [r["t_errs"] for r in rows_u], (5.0,))

@@ -9,7 +9,9 @@ essential-matrix estimation, so match -> RANSAC -> pose -> AUC runs
 without a dataset. The video (`write_synthetic_video`) moves a camera
 smoothly over the same two-plane scenes, with hard cuts between scenes; it
 feeds the training CLI without a download. cv2 is imported inside the
-functions that draw.
+functions that draw. `write_planted_label_stores` (the port's own) writes
+per-skip label stores whose labels chain across frames, for the
+propagation half of `data/walk.py`.
 """
 
 from __future__ import annotations
@@ -156,3 +158,51 @@ def write_synthetic_benchmark(root: str, n_pairs: int = 6, seed: int = 0,
         with open(join(d, f"{scene}_{i}.txt"), "w") as f:
             f.write(" ".join(fields) + "\n")
     return root
+
+
+def write_planted_label_stores(seq_root: str, n_frames: int = 130,
+                               width: int = 1280, height: int = 720,
+                               n_tracks: int = 5000,
+                               skips: tuple[int, ...] = (10, 20, 40),
+                               seed: int = 0, method: str = "planted",
+                               drop: tuple = ()) -> dict:
+    """Label stores `<seq_root>/<method>_s<skip>_rF/` (the factory's
+    layout) for pairs (i, i + skip), i = 0, skip, 2 skip, ... below
+    n_frames, whose labels chain: n_tracks static 3-D points seen by a
+    camera that moves and turns a little each frame (a rigid scene, so a
+    fundamental matrix holds between any two frames), projected onto a
+    width x height frame at whole pixels, so that a pair's middle-frame
+    endpoints hash to the next pair's (as
+    tests/test_walk_and_factory.py:41-67 plants them). Each pair keeps a
+    random 90 % of the tracks, plus n_tracks / 20 uniform rows. `drop`
+    holds (skip, i, j) pairs left out. Returns {skip: LabelStore}."""
+    from gim_tpu_torch.data.walk import LabelStore
+
+    rng = np.random.default_rng(seed)
+    f = 0.8 * width
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
+    z = rng.uniform(4.0, 12.0, (n_tracks, 1))
+    xy = rng.uniform(-0.5, 0.5, (n_tracks, 2)) * [width / f, height / f] * z
+    X = np.concatenate([xy, z], 1)
+
+    def at(k):
+        a = 0.0005 * k                         # yaw, radians
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        x = (X @ R.T + [0.002 * k, 0.0005 * k, -0.004 * k]) @ K.T
+        return np.round(x[:, :2] / x[:, 2:])
+
+    stores = {}
+    for s in skips:
+        st = LabelStore(join(seq_root, f"{method}_s{s}_rF"))
+        for i in range(0, n_frames - s, s):
+            if (s, i, i + s) in drop:
+                continue
+            keep = rng.random(n_tracks) < 0.9
+            lab = np.concatenate([at(i)[keep], at(i + s)[keep]], 1)
+            junk = rng.uniform(0, [width, height, width, height],
+                               (n_tracks // 20, 4))
+            st.save(i, i + s, np.concatenate([lab, junk]))
+        st.flush_index()
+        stores[s] = st
+    return stores

@@ -12,15 +12,17 @@ RANSAC's uniforms come from one `torch.Generator` per pair on the eval
 device, seeded from the pair identifier's 8-byte blake2s digest (the key
 the JAX package builds its threefry stream from), so a dump does not
 depend on batching. The stream itself differs from the JAX package's;
-`noise` passes given uniforms instead. One process only: the multihost
-gather and barrier raise under a `torch.distributed` group of more than
-one process.
+`noise` passes given uniforms instead. Across processes (torchrun,
+`cli/zeb_eval.py`) each process takes its share of the pairs and the rows
+meet through the process group's key-value store
+(`gather_rows_multihost`, `barrier_multihost`).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+from datetime import timedelta
 from os.path import join
 
 import numpy as np
@@ -157,27 +159,64 @@ def evaluate(match, batches, *, ransac_thresh: float = 0.5,
     return rows
 
 
-def _single_process(what: str) -> None:
-    """Raise under a torch.distributed group of more than one process:
-    the multi-process evaluation is not ported yet."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f"{what} across processes is not ported to gim_tpu_torch yet; "
-            "it comes with slice 6 of the port (ROADMAP.md)")
+def _store():
+    """The default process group's key-value store, or None outside a
+    group of more than one process."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    from torch.distributed.distributed_c10d import _get_default_store
+
+    return _get_default_store()
+
+
+_CALLS = {"barrier": 0, "gather": 0}   # per process; ranks call in lockstep
+STORE_TIMEOUT = timedelta(minutes=20)   # ranks may be this far apart
 
 
 def barrier_multihost(name: str) -> None:
-    """Cross-process barrier: a no-op in one process."""
-    _single_process(f"barrier {name!r}")
+    """Cross-process barrier through the process group's key-value store
+    (`gim_tpu/eval/zeb.py:160-180`): each rank sets its key and waits,
+    with a long timeout, for every rank's. It is not a device collective:
+    no NCCL (which refuses two ranks on one card) and no gloo clique,
+    whose connect window trips under skew between ranks. A no-op in one
+    process."""
+    store = _store()
+    if store is None:
+        return
+    import torch.distributed as dist
+
+    n = _CALLS["barrier"]
+    _CALLS["barrier"] += 1
+    key = f"zeb_barrier/{name}/{n}"
+    store.set(f"{key}/{dist.get_rank()}", b"1")
+    store.wait([f"{key}/{r}" for r in range(dist.get_world_size())],
+               STORE_TIMEOUT)
 
 
 def gather_rows_multihost(rows: list[dict]) -> list[dict]:
-    """Cross-process gather of metric rows: the rows themselves in one
-    process."""
-    _single_process("the metric gather")
-    return rows
+    """Cross-process gather of metric rows (`gim_tpu/eval/zeb.py:183-214`):
+    each rank publishes its rows, pickled, under `zeb_rows/{call}/{rank}`
+    in the process group's store, then waits for the others' with a long
+    timeout; rank order. The rows themselves in one process."""
+    store = _store()
+    if store is None:
+        return rows
+    import pickle
+
+    import torch.distributed as dist
+
+    n = _CALLS["gather"]
+    _CALLS["gather"] += 1
+    store.set(f"zeb_rows/{n}/{dist.get_rank()}", pickle.dumps(rows))
+    out = []
+    for r in range(dist.get_world_size()):
+        key = f"zeb_rows/{n}/{r}"
+        store.wait([key], STORE_TIMEOUT)
+        out.extend(pickle.loads(store.get(key)))
+    return out
 
 
 def dedup_rows(rows: list[dict]) -> list[dict]:

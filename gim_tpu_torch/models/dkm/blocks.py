@@ -1,7 +1,9 @@
 """DKM building blocks, shared by gim_dkm and gim_roma (PyTorch port).
 
 Port of `gim_tpu/models/dkm/blocks.py`: `coords_grid` (:34-41),
-`resize_nhwc` (:44-52), `resize_region_nhwc` (:55-79), `sample_nhwc`
+`resize_nhwc` (:44-52; its backward the port's own,
+`ops/resize.BilinearResize`),
+`resize_region_nhwc` (:55-79), `sample_nhwc`
 (:82-92), `local_correlation` (:147-301), `kde_density` (:304-328),
 `CosKernel` (:331-347), `GP` (:405-459, with `bug_compat`), `RRB`
 (:462-480), `CAB` (:483-497), `DFNScale` (:500-527, here the scales of
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 from gim_tpu_torch.models.common import batchnorm, conv
 from gim_tpu_torch.ops.kernels.refiner import (fold_block_params,
                                                fused_dw_block)
-from gim_tpu_torch.ops.sampling import grid_sample
+from gim_tpu_torch.ops.resize import resize_bilinear
+from gim_tpu_torch.ops.sampling import bilinear_sample, grid_sample
 from gim_tpu_torch.utils import flags
 from gim_tpu_torch.utils.device import torch_dtype
 
@@ -44,11 +47,8 @@ def coords_grid(b: int, h: int, w: int, device=None) -> torch.Tensor:
 
 
 def resize_nhwc(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bilinear resize of (B, H, W, C), half-pixel centres, no antialias
-    (torch's `F.interpolate` default, also when downsampling)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1)
+    """`resize_bilinear` of (B, H, W, C)."""
+    return resize_bilinear(x.permute(0, 3, 1, 2), (h, w)).permute(0, 2, 3, 1)
 
 
 def sample_nhwc(img: torch.Tensor, coords: torch.Tensor,
@@ -92,7 +92,8 @@ def local_correlation(x: torch.Tensor, y: torch.Tensor, radius: int,
     windows dy-major, each <x, bilinear y> / sqrt(C) with zeros outside y.
     The window offsets are whole pixels; the samples of several offsets
     are taken by one `F.grid_sample` (offsets stacked on the grid's rows),
-    as many as fit CORR_CHUNK_BYTES.
+    as many as fit CORR_CHUNK_BYTES, through `ops.sampling.bilinear_sample`,
+    whose backward gives the same bits in every run.
     """
     B, C, H, W = x.shape
     r = radius
@@ -116,8 +117,7 @@ def local_correlation(x: torch.Tensor, y: torch.Tensor, radius: int,
         n = o.shape[0]
         grid = (flow[:, None] + o[None, :, None, None]).reshape(
             B, n * H, W, 2)
-        s = F.grid_sample(yf, grid, mode="bilinear", padding_mode="zeros",
-                          align_corners=False).view(B, C, n, H, W)
+        s = bilinear_sample(yf, grid).view(B, C, n, H, W)
         out[:, k0:k0 + n] = (s * xf[:, :, None]).sum(1) * scale
     return out.to(x.dtype)
 

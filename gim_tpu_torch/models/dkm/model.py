@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from gim_tpu_torch.config import DKMConfig
 from gim_tpu_torch.models.common import conv, recomputed
@@ -40,7 +39,7 @@ from gim_tpu_torch.models.dkm.blocks import (DFN, GP, ConvRefiner,
                                              coords_grid, kde_density,
                                              resize_nhwc, resize_region_nhwc)
 from gim_tpu_torch.models.dkm.encoder import ResNet50Pyramid
-from gim_tpu_torch.ops.resize import nearest_indices
+from gim_tpu_torch.ops.resize import nearest_indices, resize_bilinear
 from gim_tpu_torch.utils.device import torch_dtype
 
 REFINER_SPECS = {
@@ -114,8 +113,7 @@ class DKMDecoder(nn.Module):
                 f1_s = conv(self.proj[s], f1_s, dt)
                 f2_s = conv(self.proj[s], f2_s, dt)
             if s in self.gps and not upsample:
-                context = F.interpolate(context, size=sizes[ins],
-                                        mode="bilinear", align_corners=False)
+                context = resize_bilinear(context, sizes[ins])
                 post = self.gps[s](f1_s.permute(0, 2, 3, 1),
                                    f2_s.permute(0, 2, 3, 1))
                 # the DFN's prediction replaces the flow and the certainty

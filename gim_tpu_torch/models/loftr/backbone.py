@@ -20,25 +20,20 @@ FPN's two `layer{1,2}_outconv2` BatchNorms).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from gim_tpu_torch.models.common import batchnorm, conv
 from gim_tpu_torch.models.resnet import ResNet50, _bn, _conv
+from gim_tpu_torch.ops.resize import bilinear_taps
 from gim_tpu_torch.utils.device import device_constant
 
 
 def _interp_matrix(n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
     """(n_out, n_in) align_corners=True linear-interpolation operator in
     like's dtype, on its device (copied there once)."""
-    pos = np.linspace(0.0, n_in - 1.0, n_out)
-    lo = np.floor(pos).astype(np.int64)
-    hi = np.minimum(lo + 1, n_in - 1)
-    m = np.zeros((n_out, n_in))
-    np.add.at(m, (np.arange(n_out), lo), 1.0 - (pos - lo))
-    np.add.at(m, (np.arange(n_out), hi), pos - lo)
+    m = bilinear_taps(n_in, n_out, align_corners=True).numpy()
     return device_constant(f"interp{n_in}to{n_out}", m,
                            like.device).to(like.dtype)
 

@@ -55,28 +55,36 @@ def rank() -> int:
     return dist.get_rank() if in_group() else 0
 
 
-def init_from_env(device: torch.device) -> bool:
+def init_from_env(device: torch.device, backend: str | None = None) -> bool:
     """Join the process group that torchrun's environment describes
     (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK): NCCL when
-    `device` is CUDA (the process takes card LOCAL_RANK as its current
-    device, which "cuda" then names), gloo on the CPU.
-    Returns False, and joins nothing, outside torchrun."""
+    `device` is CUDA (the process takes card LOCAL_RANK, modulo the cards
+    present, as its current device, which "cuda" then names), gloo on the
+    CPU, or `backend` if given (ZEB's evaluation takes gloo: it meets
+    through the group's store only, and NCCL refuses two ranks on one
+    card). Returns False, and joins nothing, outside torchrun."""
     if in_group():
         return True
     if "WORLD_SIZE" not in os.environ:
         return False
     if device.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    dist.init_process_group(backend or ("nccl" if device.type == "cuda"
+                                        else "gloo"))
     return True
 
 
-def process_local_pair_slice(n_pairs: int) -> slice:
-    """This process's share of a pair list: contiguous blocks of
-    ceil(n / world) pairs (the last one shorter)."""
-    per = -(-n_pairs // world_size())
-    r = rank()
-    return slice(r * per, min((r + 1) * per, n_pairs))
+def process_local_pairs(items: list) -> list:
+    """This process's share of a pair list, the JAX package's rule
+    (`gim_tpu/cli/zeb_eval.py:142-156`): the list padded at its tail with
+    its own head to a multiple of the world size, then every world-th
+    item from this rank on. The padded repeats are dropped by the
+    identifier dedup after the gather."""
+    n_proc = world_size()
+    per = -(-len(items) // n_proc)
+    padded = items + items[:per * n_proc - len(items)]
+    return padded[rank()::n_proc]
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:

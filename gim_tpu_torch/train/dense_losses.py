@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from gim_tpu_torch.models.roma import RoMaMatcher
+from gim_tpu_torch.ops.sampling import ordered_index_add_
 from gim_tpu_torch.parallel.mesh import global_sum
 from gim_tpu_torch.train import loop
 
@@ -44,7 +45,9 @@ def scatter_sparse_warp(labels: torch.Tensor, label_valid: torch.Tensor,
     valid labels that start in it (cells clipped to the grid).
 
     Returns (gt_flow (B, hs, ws, 2) in [-1, 1], gt_mask (B, hs, ws)). The
-    sums are `index_add_`s: labels sharing a cell add in any order."""
+    sums add the labels sharing a cell in their order
+    (`ops.sampling.ordered_index_add_`), the same bits in every run, as
+    the JAX package's scatter-add gives."""
     H, W = in_hw
     B, N, _ = labels.shape
     ix = (labels[..., 0] * ws / W).to(torch.int32).clamp(0, ws - 1)
@@ -57,9 +60,10 @@ def scatter_sparse_warp(labels: torch.Tensor, label_valid: torch.Tensor,
     ty = 2.0 * (labels[..., 3] + 0.5) / H - 1.0
     w = label_valid.to(labels.dtype)
     tgt = torch.stack([tx, ty], dim=-1) * w[..., None]          # (B, N, 2)
-    acc = labels.new_zeros((B * hs * ws, 2)).index_add_(
-        0, flat, tgt.reshape(-1, 2))
-    cnt = labels.new_zeros(B * hs * ws).index_add_(0, flat, w.reshape(-1))
+    acc = ordered_index_add_(labels.new_zeros((B * hs * ws, 2)), flat,
+                             tgt.reshape(-1, 2))
+    cnt = ordered_index_add_(labels.new_zeros(B * hs * ws), flat,
+                             w.reshape(-1))
     gt_flow = (acc / cnt.clamp_min(1.0)[:, None]).reshape(B, hs, ws, 2)
     return gt_flow, (cnt > 0).reshape(B, hs, ws)
 

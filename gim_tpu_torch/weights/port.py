@@ -37,12 +37,15 @@ import torch
 LOFTR_DROP = ("coarse_matching.", "fine_matching.", "pos_encoding.")
 
 
-def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A reference checkpoint's tensors on the CPU ('state_dict' unwrapped)."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
+def _tensors(sd: Mapping) -> dict[str, torch.Tensor]:
     if "state_dict" in sd:
         sd = sd["state_dict"]
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A reference checkpoint's tensors on the CPU ('state_dict' unwrapped)."""
+    return _tensors(torch.load(path, map_location="cpu", weights_only=False))
 
 
 def normalize_gim_loftr(sd: dict) -> dict:
@@ -490,3 +493,77 @@ def lightglue_state_dict_from_jax(variables: Mapping, n_layers: int
     if u.params:
         raise ValueError(f"unmapped lightglue leaves: {list(u.params)[:8]}")
     return u.sd
+
+
+# ---------------------------------------------------------------------------
+# mit_semseg (ADE20K segmentation: encoder_epoch_20.pth + decoder_epoch_20.pth)
+# ---------------------------------------------------------------------------
+
+SEMSEG_DROP = ("fc.", "cbr_deepsup", "conv_last_deepsup", "dropout_deepsup")
+
+
+def semseg_state_dict(encoder_sd: Mapping, decoder_sd: Mapping
+                      ) -> dict[str, torch.Tensor]:
+    """The reference's resnet50dilated encoder and ppm_deepsup decoder
+    state dicts as the port's `models.semseg.SegmentationModel` loads them
+    strictly: under `encoder.` and `decoder.`, the classifier `fc.` and
+    the training-only deepsup branch dropped (as `port_semseg` drops
+    them, `gim_tpu/weights/port.py:363-396`), and the BatchNorms'
+    `num_batches_tracked` (which mit_semseg's SyncBatchNorm does not
+    keep) added as 0."""
+    out = {}
+    for prefix, sd in (("encoder.", encoder_sd), ("decoder.", decoder_sd)):
+        for k, v in sd.items():
+            k = k[len("module."):] if k.startswith("module.") else k
+            if not k.startswith(SEMSEG_DROP):
+                out[prefix + k] = v
+    for k in [k for k in out if k.endswith(".running_mean")]:
+        out.setdefault(k[:-len("running_mean")] + "num_batches_tracked",
+                       torch.tensor(0))
+    return out
+
+
+def load_semseg_state_dict(encoder_path: str, decoder_path: str
+                           ) -> dict[str, torch.Tensor]:
+    """`semseg_state_dict` of the reference's two checkpoint files."""
+    return semseg_state_dict(load_torch_state_dict(encoder_path),
+                             load_torch_state_dict(decoder_path))
+
+
+# ---------------------------------------------------------------------------
+# converted checkpoints (cli/convert_ckpt.py)
+# ---------------------------------------------------------------------------
+
+CONVERTED_KEY = "gim_tpu_torch_model"
+
+
+def write_converted(path: str, name: str, sd: Mapping) -> None:
+    """A converted checkpoint: the state dict of the port's model `name`
+    (a head of MODEL_ZOO, or "semseg"), as `load_converted` and
+    `Matcher.from_checkpoint` read it back."""
+    tmp = f"{path}.tmp"
+    torch.save({CONVERTED_KEY: name,
+                "state_dict": {k: v.detach().cpu().contiguous()
+                               for k, v in sd.items()}}, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> tuple[str | None, dict[str, torch.Tensor]]:
+    """(model name, state dict) of a converted checkpoint
+    (`write_converted`); (None, its tensors) of any other checkpoint file.
+    The file is read once."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    name = raw.get(CONVERTED_KEY) if isinstance(raw, Mapping) else None
+    return name, _tensors(raw)
+
+
+def load_converted(path: str, name: str) -> dict[str, torch.Tensor]:
+    """The state dict of the converted checkpoint of model `name` (the
+    counterpart of the JAX CLI's `load_msgpack`); raises for any other
+    file."""
+    got, sd = load_checkpoint(path)
+    if got is None:
+        raise ValueError(f"{path} is not a converted checkpoint")
+    if got != name:
+        raise ValueError(f"{path} holds {got}, not {name}")
+    return sd
