@@ -141,7 +141,28 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    at 8192 planted labels against the CPU with the card's uniforms, and
    `Propagator.propagate_pair` over planted stores at skips 10/20/40
    (about 5000 labels a pair on 1280-wide frames) with the compiled chain
-   linker, asserted to be the one that ran.
+   linker, asserted to be the one that ran;
+29. the hloc layer's matching on the card (`hloc/pipeline.py`,
+   `hloc/reconstruction.py`) on 6 rendered views of 1280 x 960 (a numpy
+   texture on two planes, warped by plane homographies through
+   `F.grid_sample`), 15 exhaustive pairs: SuperPoint at resize_max 1920
+   with 2048 keypoints and LightGlue on every pair (full width, seeded
+   random weights); gim_dkm at 672 with 8192 samples and the aggregator;
+   the COLMAP database on arrays with the fundamental verification on the
+   card; ms per image and per pair of each stage, the aggregation's ms on
+   the host, peak memory; one pair card against CPU (SuperPoint,
+   LightGlue's matches0 at resize_max 640, the verification with the
+   card's uniforms); the dense stage again with GIM_TPU_FUSED_REFINER=1:
+   K2 launches per pair asserted, keypoints against the switch-off run,
+   and K2's float32 kernel at each input shape that run gave it against
+   its plain version at TOL_F32, timed beside its float32 bound (its own
+   `refiner_block_f32` entry of the kernels line);
+30. SfM on the card: `hloc/mapper.incremental_mapping_native` on the
+   60-camera synthetic database of the JAX package's envelope test (400
+   points, 1770 verified pairs, 0.3 px), asserting its bounds; a second
+   run equal bit for bit, under the profiler (busy share) with host syncs
+   counted; stage ms per registration; `ba_steps`, PnP with fixed row
+   indices and `triangulate_tracks` card against CPU in float64.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}.
@@ -270,6 +291,21 @@ FACTORY_VIDEO_W, FACTORY_VIDEO_H = 1280, 720
 FACTORY_FRAME, FACTORY_FRAMES, FACTORY_IMG = (360, 640), 4, 840
 FACTORY_PLANTED, FACTORY_TRACKS = 8192, 5000
 SEG_TOL = 1e-4
+# the hloc layer (phase 29) at the reference's hloc confs: 6 views of
+# 1280 x 960 (15 exhaustive pairs); SuperPoint at resize_max 1920 with 2048
+# keypoints (ref hloc/extract_features.py:29-40), LightGlue over them;
+# gim_dkm at 672 with 8192 samples, cells of 8 px, max_error 2 px, 8192
+# canonical keypoints at most (ref hloc/match_dense.py:25-40); its
+# card-against-CPU check of SuperPoint and LightGlue at resize_max 640
+HLOC_VIEWS, HLOC_WH = 6, (1280, 960)
+HLOC_RESIZE, HLOC_KPTS = 1920, 2048
+HLOC_DENSE_IMG, HLOC_SAMPLES, HLOC_CELL, HLOC_MAX_ERROR = 672, 8192, 8, 2.0
+HLOC_MAX_KPS, HLOC_CHECK_RESIZE = 8192, 640
+# SfM (phase 30) at the JAX package's envelope test (tests/test_mapper.py
+# test_sixty_image_scene): 60 cameras, 400 points, 0.3 px noise, seed 1;
+# its bounds; card against CPU in float64 to SFM_TOL relative
+SFM_CAMS, SFM_POINTS, SFM_NOISE, SFM_SEED = 60, 400, 0.3, 1
+SFM_CENTRE_TOL, SFM_STRUCT_TOL, SFM_MIN_POINTS, SFM_TOL = 0.08, 0.02, 200, 1e-9
 
 
 def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
@@ -295,6 +331,32 @@ def switches(on: bool):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def refiner_block_params(C: int, C_out: int, dtype, g):
+    """A random ConvRefiner block on the card (depthwise 5x5, BN with
+    running statistics, ReLU, 1x1 C -> C_out) drawn from the generator `g`,
+    and its folded K2 inputs in `dtype`."""
+    import torch
+    from torch import nn
+
+    from gim_tpu_torch.ops.kernels.refiner import fold_block_params
+
+    dev = g.device
+    blk = nn.Sequential(
+        nn.Conv2d(C, C, 5, padding=2, groups=C), nn.BatchNorm2d(C),
+        nn.ReLU(), nn.Conv2d(C, C_out, 1)).to(dev)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, device=dev, generator=g)
+                    / (p[0].numel() ** 0.5 if p.dim() > 1 else 4.0))
+        blk[1].weight.add_(1.0)
+        blk[1].running_mean.normal_(0.0, 0.1, generator=g)
+        blk[1].running_var.uniform_(0.5, 1.5, generator=g)
+    blk.eval().requires_grad_(False)
+    folded = [t.to(dtype).contiguous()
+              for t in fold_block_params(blk[0], blk[1], blk[3])]
+    return blk, folded
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -909,9 +971,12 @@ class Smoke:
         self.print_stages("one batch", spans, total,
                           "rest (input cast, expectation, coordinates)")
 
-    def profile(self, fn, top: int = 20):
+    def profile(self, fn, top: int = 20, long_window: bool = False):
         """Device time by kernel for one `fn()`. Informational: a profiler
-        that cannot trace the card is reported, not a failed phase.
+        that cannot trace the card is reported, not a failed phase. With
+        `long_window` only the device's activities are traced and no table
+        by kernel is built, which cuts the post-processing of a window with
+        many launches.
 
         The busy share is the union of the device activities' intervals
         (kernels, copies, sets; not the profiler's annotation ranges) over
@@ -925,8 +990,8 @@ class Smoke:
 
         torch.cuda.synchronize()
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA] + (
+                    [] if long_window else [ProfilerActivity.CPU])) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
@@ -937,7 +1002,7 @@ class Smoke:
                           and not e.is_user_annotation()
                           and e.end_ns() > e.start_ns())
             rows = []   # kernels only: operator rows repeat their time
-            for e in prof.key_averages():
+            for e in (() if long_window else prof.key_averages()):
                 t = e.self_device_time_total
                 if (e.device_type == DeviceType.CUDA and t > 0
                         and not getattr(e, "is_user_annotation", False)):
@@ -1002,31 +1067,11 @@ class Smoke:
     def refiner_vs_plain(self):
         import torch
 
-        from torch import nn
-
         from gim_tpu_torch.models.dkm.blocks import _run_block
         from gim_tpu_torch.ops.kernels import refiner as K
 
         dev = torch.device("cuda")
         g = torch.Generator(device=dev).manual_seed(6)
-
-        def params(C, C_out, dtype):
-            """A random block (depthwise 5x5, BN with running statistics,
-            ReLU, 1x1 C -> C_out) and its folded kernel inputs."""
-            blk = nn.Sequential(
-                nn.Conv2d(C, C, 5, padding=2, groups=C), nn.BatchNorm2d(C),
-                nn.ReLU(), nn.Conv2d(C, C_out, 1)).to(dev)
-            with torch.no_grad():
-                for p in blk.parameters():
-                    p.copy_(torch.randn(p.shape, device=dev, generator=g)
-                            / (p[0].numel() ** 0.5 if p.dim() > 1 else 4.0))
-                blk[1].weight.add_(1.0)
-                blk[1].running_mean.normal_(0.0, 0.1, generator=g)
-                blk[1].running_var.uniform_(0.5, 1.5, generator=g)
-            blk.eval().requires_grad_(False)
-            folded = [t.to(dtype).contiguous()
-                      for t in K.fold_block_params(blk[0], blk[1], blk[3])]
-            return blk, folded
 
         # ragged cases: C != C_out, H and W not tile multiples, an odd
         # width (rows not 16-byte aligned: element loads, not cp.async) and
@@ -1035,7 +1080,7 @@ class Smoke:
                              ((1, 192, 21, 72), 144)):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(shape, device=dev, generator=g).to(dtype)
-                _, f = params(shape[1], C_out, dtype)
+                _, f = refiner_block_params(shape[1], C_out, dtype, g)
                 got = K.fused_dw_block(x, *f)
                 want = K.fused_dw_block_plain(x.float(),
                                               *(t.float() for t in f))
@@ -1056,7 +1101,7 @@ class Smoke:
             for shape in shapes:
                 B, C, H, W = shape
                 x = torch.randn(shape, device=dev, generator=g).bfloat16()
-                blk, f = params(C, C, torch.bfloat16)
+                blk, f = refiner_block_params(C, C, torch.bfloat16, g)
                 got = K.fused_dw_block(x, *f)
                 plain = K.fused_dw_block_plain(x, *f)
                 want = K.fused_dw_block_plain(x.float(),
@@ -3066,6 +3111,468 @@ class Smoke:
               f"{native.library_path().name})")
         assert calls["compiled"] > 0 and calls["numpy"] == 0, calls
 
+    # -- 29-30: the hloc layer -------------------------------------------
+    def hloc_matching(self):
+        """Phase 29: the hloc stages on arrays on the card (the card's
+        machine has no cv2 and no h5py): sparse extraction and matching,
+        dense matching and aggregation, the database with verification."""
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.api import Matcher, match_fn
+        from gim_tpu_torch.config import GimConfig, LightGlueConfig
+        from gim_tpu_torch.geometry.ransac import draw_noise
+        from gim_tpu_torch.hloc import pipeline as P
+        from gim_tpu_torch.hloc.mapper import read_database
+        from gim_tpu_torch.hloc.reconstruction import (
+            VERIFY_SEED, build_database_arrays, geometric_verification_onchip)
+        from gim_tpu_torch.models.dkm import blocks as dkm_blocks
+        from gim_tpu_torch.ops.image import preprocess_image
+        from gim_tpu_torch.ops.kernels import refiner
+        from gim_tpu_torch.utils.profiling import StageTimer
+
+        dev = self.dev
+        W, H = HLOC_WH
+        views = hloc_views(dev)
+        names = [f"view{i}.png" for i in range(len(views))]
+        pairs = P.pairs_from_exhaustive(names)
+        timer = StageTimer()
+        torch.cuda.reset_peak_memory_stats()
+
+        # sparse: SuperPoint on every view, LightGlue on every pair
+        sp = Matcher("gim_lightglue", device=dev)
+        pre = {n: preprocess_image(v, HLOC_RESIZE, 8, True, dev)
+               for n, v in zip(names, views)}
+
+        def extract(matcher, p, pad_noise=None):
+            f = P.superpoint_features(matcher, p.gray, p.resize_hw,
+                                      p.scale.cpu().numpy(), pad_noise)
+            f["image_size"] = np.array([W, H])
+            return f
+
+        extract(sp, pre[names[0]])                              # warm-up
+        torch.cuda.synchronize()
+        with timer.stage("sparse extract"):
+            feats = {n: extract(sp, pre[n]) for n in names}
+        P.lightglue_pair(sp, feats[names[0]], feats[names[1]], HLOC_KPTS)
+        with timer.stage("sparse match"):
+            sparse = {p: P.lightglue_pair(sp, feats[p[0]], feats[p[1]],
+                                          HLOC_KPTS) for p in pairs}
+        n_kpts = [len(f["keypoints"]) for f in feats.values()]
+        n_sparse = [int((m0 >= 0).sum()) for m0, _ in sparse.values()]
+        assert all(len(m0) == HLOC_KPTS for m0, _ in sparse.values())
+        assert min(n_kpts) > 0
+
+        # dense: gim_dkm at 672 with 8192 samples, then the aggregator
+        dk = Matcher("gim_dkm", device=dev)
+        cfg = P.dense_config(dk, HLOC_SAMPLES)
+        assert cfg.dkm.num_samples == HLOC_SAMPLES != dk.cfg.dkm.num_samples
+        dpre = {n: preprocess_image(v, HLOC_DENSE_IMG, 8, True, dev)
+                for n, v in zip(names, views)}
+
+        def dense(a, b):
+            return P.dense_pair(dk, cfg, dpre[a].color, dpre[a].scale,
+                                dpre[b].color, dpre[b].scale)
+
+        dense(*pairs[0])                                        # warm-up
+        before = refiner.LAUNCHES["refiner_block"]
+        with env(GIM_TPU_FUSED_REFINER="0"), timer.stage("dense match"):
+            raw = {p: dense(*p) for p in pairs}
+        assert refiner.LAUNCHES["refiner_block"] == before
+        with timer.stage("aggregate (host)"):
+            canonical, matches = P.aggregate_dense(
+                raw, pairs, HLOC_CELL, HLOC_MAX_ERROR, HLOC_MAX_KPS)
+        kp = {n: canonical[n][0] for n in names}
+        for k0, k1, c in raw.values():
+            assert np.isfinite(k0).all() and np.isfinite(k1).all()
+            assert len(c) > 0 and (k0 >= 0).all() and (k1 >= 0).all()
+        assert all(0 < len(k) <= HLOC_MAX_KPS for k in kp.values())
+
+        # the database on arrays, each pair verified on the card
+        geometric_verification_onchip(kp[pairs[0][0]], kp[pairs[0][1]],
+                                      matches[pairs[0]][0], device=dev)
+        with timer.stage("verify"):
+            inl = {p: geometric_verification_onchip(
+                kp[p[0]], kp[p[1]], matches[p][0], device=dev)
+                for p in pairs}
+        with tempfile.TemporaryDirectory() as d:
+            db = os.path.join(d, "database.db")
+            t0 = time.perf_counter()
+            build_database_arrays(db, {n: (W, H) for n in names}, kp,
+                                  [(a, b, matches[(a, b)][0])
+                                   for a, b in pairs], device=dev)
+            db_ms = (time.perf_counter() - t0) * 1e3
+            cams, imgs, db_kpts, verified = read_database(db)
+        assert len(cams) == 1 and sorted(imgs) == names
+        for p in pairs:                       # the same draws: the same rows
+            want = matches[p][0][inl[p]]
+            got = verified.get(p, np.zeros((0, 2), np.uint32))
+            assert np.array_equal(got, want.astype(np.uint32)), p
+        peak = torch.cuda.max_memory_allocated()
+        t = timer.times
+        print(f"  {len(names)} views of {W} x {H}, {len(pairs)} pairs "
+              f"[{self.card}]:")
+        print(f"    SuperPoint at resize_max {HLOC_RESIZE} ({HLOC_KPTS} "
+              f"keypoints): {t['sparse extract'] * 1e3 / len(names):.2f} ms "
+              f"per image; valid keypoints {n_kpts}")
+        print(f"    LightGlue (9 layers, threshold 0.1): "
+              f"{t['sparse match'] * 1e3 / len(pairs):.2f} ms per pair; "
+              f"matches {n_sparse}")
+        print(f"    gim_dkm at {HLOC_DENSE_IMG} ({HLOC_SAMPLES} samples, "
+              f"float32): {t['dense match'] * 1e3 / len(pairs):.2f} ms per "
+              f"pair; valid samples {[len(r[2]) for r in raw.values()]}")
+        print(f"    aggregation on the host (cell {HLOC_CELL}, max_error "
+              f"{HLOC_MAX_ERROR}): {t['aggregate (host)'] * 1e3:.2f} ms for "
+              f"{len(pairs)} pairs; canonical keypoints "
+              f"{[len(k) for k in kp.values()]}; unique matches "
+              f"{[len(m) for m, _ in matches.values()]}")
+        print(f"    fundamental verification (2048 hypotheses): "
+              f"{t['verify'] * 1e3 / len(pairs):.2f} ms per pair; inliers "
+              f"{[int(v.sum()) for v in inl.values()]}; the database on "
+              f"arrays {db_ms:.2f} ms, its verified rows equal the "
+              f"verification's")
+        print(f"    peak memory {peak / 2**30:.2f} GiB")
+        print("    stage timer:\n      " + timer.report().replace(
+            "\n", "\n      "))
+
+        # one pair, card against CPU
+        n0, n1 = pairs[0]
+        cpu_cfg = GimConfig(lightglue=LightGlueConfig(filter_threshold=0.0))
+        cpu = Matcher("gim_lightglue", cpu_cfg, device="cpu")
+        card = Matcher("gim_lightglue", cpu_cfg,
+                       state_dict=cpu.model.state_dict(), device=dev)
+        g = torch.Generator().manual_seed(29)
+        noise = torch.rand((1, cpu_cfg.superpoint.max_num_keypoints, 2),
+                           generator=g)
+        small = {n: preprocess_image(views[names.index(n)],
+                                     HLOC_CHECK_RESIZE, 8, True, dev)
+                 for n in (n0, n1)}
+        # the same canvases (made on the card) into both
+        fc = {n: extract(card, small[n], noise) for n in (n0, n1)}
+        fh = {n: extract(cpu, small[n], noise) for n in (n0, n1)}
+        for n in (n0, n1):
+            # keypoints as sets (scores within float32 rounding can rank
+            # the other way round, phase 15), descriptors where they agree
+            a, b = ({tuple(k): i for i, k in enumerate(f["keypoints"])}
+                    for f in (fc[n], fh[n]))
+            shared = sorted(a.keys() & b.keys())
+            share = len(shared) / max(len(a.keys() | b.keys()), 1)
+            ia, ib = [a[k] for k in shared], [b[k] for k in shared]
+            d = float(np.abs(fc[n]["descriptors"][:, ia]
+                             - fh[n]["descriptors"][:, ib]).max())
+            print(f"  SuperPoint card against CPU at resize_max "
+                  f"{HLOC_CHECK_RESIZE}, {n}: {len(a)} / {len(b)} "
+                  f"keypoints, shared {share:.4f} (limit {LG_AGREE}); "
+                  f"descriptors max diff {d:.2e} where shared (limit "
+                  f"{LG_TOL})")
+            assert share >= LG_AGREE and d <= LG_TOL and len(shared), n
+        mc, sc = P.lightglue_pair(card, fh[n0], fh[n1], HLOC_KPTS)
+        mh, sh = P.lightglue_pair(cpu, fh[n0], fh[n1], HLOC_KPTS)
+        m_agree = float((mc == mh).mean())
+        print(f"  LightGlue card against CPU (threshold 0, the CPU's "
+              f"features): matches0 equal on {m_agree:.4f} of slots (limit "
+              f"{LG_AGREE}); {int((mh >= 0).sum())} matches on the CPU; "
+              f"scores max diff {float(np.abs(sc - sh).max()):.2e}")
+        assert m_agree >= LG_AGREE and int((mh >= 0).sum()) > 0
+        # verification with the card's uniforms, on planted two-view
+        # matches at this pair's match count (random weights give matches
+        # with no geometry to verify)
+        rng = np.random.default_rng(29)
+        n = max(len(matches[(n0, n1)][0]), 64)
+        p0, p1, _, _, _ = gt_scene(rng, n, n, 0.7, ZEB_NOISE_PX)
+        ids = np.stack([np.arange(n), np.arange(n)], 1)
+        M = 1 << int(np.ceil(np.log2(max(n, 8))))
+        banks = draw_noise([torch.Generator(dev).manual_seed(VERIFY_SEED)],
+                           2048, M, dev)
+        vc = geometric_verification_onchip(p0, p1, ids, device=dev)
+        vh = geometric_verification_onchip(
+            p0, p1, ids, device="cpu", noise=tuple(b.cpu() for b in banks))
+        agree = float((vc == vh).mean())
+        print(f"  verification card against CPU on {n} planted matches "
+              f"(M = {M}), the card's uniforms: masks agree on {agree:.4f} "
+              f"(limit {MASK_AGREE}); {int(vc.sum())} / {int(vh.sum())} "
+              f"inliers")
+        assert agree >= MASK_AGREE and vc.sum() >= 0.6 * n
+
+        # the dense stage with K2 (GIM_TPU_FUSED_REFINER=1); the blocks'
+        # inputs are recorded on the way to the kernel's wrapper
+        seen = collections.Counter()
+        wrapper = dkm_blocks.fused_dw_block
+
+        def recording(x, *f):
+            seen[(tuple(x.shape), f[2].shape[0], x.dtype)] += 1
+            return wrapper(x, *f)
+
+        for k in refiner.LAUNCHES:
+            refiner.LAUNCHES[k] = 0
+        dkm_blocks.fused_dw_block = recording
+        try:
+            with env(GIM_TPU_FUSED_REFINER="1"):
+                t0 = time.perf_counter()
+                raw_on = {p: dense(*p) for p in pairs}
+                on_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+        finally:
+            dkm_blocks.fused_dw_block = wrapper
+        k2 = refiner.LAUNCHES["refiner_block"]
+        assert k2 == len(pairs) * DKM_K2_PER_CALL == sum(seen.values()), k2
+        assert {dt for _, _, dt in seen} == {torch.float32}, seen
+        self.refiner_f32(seen, len(pairs), k2)
+        canon_on, _ = P.aggregate_dense(raw_on, pairs, HLOC_CELL,
+                                        HLOC_MAX_ERROR, HLOC_MAX_KPS)
+        shares = []
+        for n in names:
+            a = {tuple(x) for x in canon_on[n][0]}
+            b = {tuple(x) for x in canonical[n][0]}
+            shares.append(len(a & b) / max(len(a | b), 1))
+        # one pair's samples slot by slot (phase 11's tolerance, pixels of
+        # the 672 canvas)
+        out = {}
+        for flag in ("0", "1"):
+            with env(GIM_TPU_FUSED_REFINER=flag):
+                out[flag] = match_fn(dk.name, cfg, dk.model,
+                                     dpre[n0].color[None],
+                                     dpre[n1].color[None],
+                                     dpre[n0].scale[None],
+                                     dpre[n1].scale[None], device=dev)
+        both = out["0"].valid & out["1"].valid
+        dk0 = (out["0"].kpts0 - out["1"].kpts0).abs().amax(-1)
+        dk1 = (out["0"].kpts1 - out["1"].kpts1).abs().amax(-1)
+        tol = SWITCH_TOL * HLOC_DENSE_IMG
+        slot = float(((out["0"].valid == out["1"].valid)
+                      & (~both | ((dk0 <= tol) & (dk1 <= tol))))
+                     .float().mean())
+        print(f"  gim_dkm with K2 (GIM_TPU_FUSED_REFINER=1): {k2} K2 "
+              f"launches for {len(pairs)} pairs ({k2 // len(pairs)} per "
+              f"pair), {on_ms:.2f} ms per pair against "
+              f"{t['dense match'] * 1e3 / len(pairs):.2f} without "
+              f"[{self.card}]; canonical keypoints shared with the "
+              f"switch-off run {[round(x, 4) for x in shares]} (limit "
+              f"{MASK_AGREE}); one pair's samples agree within {tol:.3f} px "
+              f"on {slot:.5f} of slots (limit {MIN_AGREE})")
+        assert min(shares) >= MASK_AGREE and slot >= MIN_AGREE
+
+    def refiner_f32(self, seen, calls: int, launches: int):
+        """K2's float32 kernel at the inputs slice 8's dense stage gave it
+        (`seen`: (shape, C_out, dtype) -> launches over `calls` calls): each
+        shape on fresh random blocks against the plain version at TOL_F32,
+        and timed beside its float32 bound. Its own entry of the kernels
+        line, whose times are one dense call's launches together."""
+        import torch
+
+        from gim_tpu_torch.ops.kernels import refiner as K
+
+        g = torch.Generator(device=self.dev).manual_seed(290)
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        max_err, by = 0.0, set()
+        for (shape, C_out, dtype), n in sorted(seen.items(),
+                                               key=lambda kv: kv[0][:2]):
+            B, C, H, W = shape
+            x = torch.randn(shape, device=self.dev, generator=g).to(dtype)
+            _, f = refiner_block_params(C, C_out, dtype, g)
+            got = K.fused_dw_block(x, *f)
+            want = K.fused_dw_block_plain(x, *f)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, rtol=TOL_F32, atol=TOL_F32)
+            del got, want
+            t_k = cuda_ms(lambda: K.fused_dw_block(x, *f), 10)
+            t_p = cuda_ms(lambda: K.fused_dw_block_plain(x, *f), 10)
+            flops = 2.0 * B * H * W * (25 * C + C * C_out)
+            nbytes = 4.0 * B * H * W * (C + C_out) + 4.0 * (
+                27 * C + C * C_out + C_out)
+            b_ms, b_by = bound(flops, nbytes, peak=PEAK_F32_FLOPS)
+            by.add(b_by)
+            print(f"  K2 float32 {shape} -> {C_out} ({n // calls} launches "
+                  f"per call): max abs err {err:.3e} against the plain "
+                  f"version on the same inputs (limit {TOL_F32} + {TOL_F32} "
+                  f"|plain|); kernel {t_k:.3f} ms, {t_k / b_ms:.2f}x its "
+                  f"bound {b_ms:.3f} ms ({b_by}), plain {t_p:.3f} ms "
+                  f"[{self.card}]")
+            assert ok, shape
+            max_err = max(max_err, err)
+            tot["ms"] += n / calls * t_k
+            tot["plain_ms"] += n / calls * t_p
+            tot["bound_ms"] += n / calls * b_ms
+            del x
+        print(f"  K2 float32 per dense call ({launches // calls} launches): "
+              f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+              f"bound {tot['bound_ms']:.3f} ms; kernel / bound "
+              f"{tot['ms'] / tot['bound_ms']:.2f} [{self.card}]")
+        self.kernels["refiner_block_f32"] = {
+            "name": "refiner_block_f32", "route": "cuda",
+            "source": "gim_tpu_torch/csrc/refiner.cu",
+            "replaces": "gim_tpu/ops/pallas_kernels/refiner.py:39",
+            "launches": launches, "max_abs_err": max_err, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": None}
+
+    def sfm(self):
+        """Phase 30: the native mapper on the card at the JAX package's
+        envelope (tests/test_mapper.py test_sixty_image_scene)."""
+        import tempfile
+        import warnings
+
+        import numpy as np
+        import torch
+
+        from gim_tpu_torch.hloc import mapper as M
+        from gim_tpu_torch.hloc import triangulation as T
+        from gim_tpu_torch.utils.profiling import StageTimer
+
+        dev = self.dev
+        names, cams, pts, K, wh, kpts, vis, order = sfm_scene(
+            SFM_CAMS, SFM_POINTS, SFM_NOISE, SFM_SEED)
+        with tempfile.TemporaryDirectory() as d:
+            db = os.path.join(d, "database.db")
+            n_pairs = write_sfm_db(db, names, K, wh, kpts, order)
+            timer = StageTimer()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rec = M.incremental_mapping_native(db, verbose=False,
+                                               device=dev, timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            again = []
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    # the device's activities only, no table by kernel:
+                    # ~150000 launches, whose CPU-side events and table
+                    # took over a minute to post-process
+                    prof = self.profile(lambda: again.append(
+                        M.incremental_mapping_native(db, verbose=False,
+                                                     device=dev)),
+                        long_window=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if not again:               # the profiler failed: run it plain
+                again.append(M.incremental_mapping_native(
+                    db, verbose=False, device=dev))
+            _, _, _, verified = M.read_database(db)
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message)]
+        n_reg = rec.num_reg_images()
+        C_est = np.array([-(R.T @ t) for R, t in
+                          (rec.poses[n] for n in names)])
+        C_gt = np.array([-(R.T @ t) for R, t in cams])
+        sc, Rs, ts = align_similarity(C_est, C_gt)
+        centre = float(np.linalg.norm((C_est @ (sc * Rs).T + ts) - C_gt,
+                                      axis=-1).max())
+        est = np.array([rec.xyz[pi] for pi in range(len(rec.track_obs))])
+        gt = np.array([pts[vis[tr[0][0]][tr[0][1]]] for tr in rec.track_obs])
+        sc, Rs, ts = align_similarity(est, gt)
+        struct = float(np.median(np.linalg.norm(est @ (sc * Rs).T + ts - gt,
+                                                axis=-1)))
+        b = again[0]
+        same = (list(b.poses) == list(rec.poses)
+                and all(np.array_equal(x, y) for n in rec.poses
+                        for x, y in zip(b.poses[n], rec.poses[n]))
+                and np.array_equal(b.xyz, rec.xyz)
+                and b.track_obs == rec.track_obs)
+        regs = max(n_reg - 2, 1)
+        t = timer.times
+        print(f"  {SFM_CAMS} cameras, {SFM_POINTS} points, {n_pairs} "
+              f"verified pairs, {SFM_NOISE} px: {n_reg} registered, "
+              f"{rec.num_points3D()} points; centres within {centre:.5f} "
+              f"after a similarity (limit {SFM_CENTRE_TOL}), structure "
+              f"median {struct:.5f} (limit {SFM_STRUCT_TOL})")
+        print(f"  {wall:.2f} s on the host clock, peak memory "
+              f"{peak / 2**20:.1f} MiB [{self.card}]; init "
+              f"{t['init'] * 1e3:.2f} ms once, then per registration "
+              f"({regs}): PnP {t['pnp'] * 1e3 / regs:.2f}, triangulation "
+              f"{t['triangulate'] * 1e3 / regs:.2f} (host), bundle "
+              f"adjustment {t['bundle_adjust'] * 1e3 / regs:.2f}, filter "
+              f"{t['filter'] * 1e3 / regs:.2f} (host) ms")
+        print("  stage timer:\n    " + timer.report().replace("\n", "\n    "))
+        print(f"  second run (profiled): {len(syncs)} host syncs, "
+              f"{len(syncs) / regs:.1f} per registration; "
+              + (f"{prof[0]} device activities, busy {prof[1]:.2f} of "
+                 f"{prof[2]:.2f} ms, share {prof[1] / prof[2]:.4f}"
+                 if prof else "busy share not measured")
+              + f"; the same poses and points bit for bit: {same}")
+        for msg in sorted(set(syncs))[:8]:
+            print(f"    sync: {msg.splitlines()[0][:110]}")
+        assert n_reg == SFM_CAMS and rec.num_points3D() > SFM_MIN_POINTS
+        assert centre < SFM_CENTRE_TOL and struct < SFM_STRUCT_TOL
+        assert n_pairs == len(verified) and same
+
+        print(f"  (runs and profile done {time.perf_counter() - t0:.1f} s "
+              f"after the first run started)")
+
+        # card against CPU in float64, each on one fixed problem
+        def rel(a, b):
+            return float((a.cpu() - b).abs().max() / b.abs().max())
+
+        f64 = torch.float64
+        rng = np.random.default_rng(30)
+        # bundle adjustment: the reconstruction's final state, perturbed
+        pn = list(rec.poses)
+        cmap = {n: i for i, n in enumerate(pn)}
+        nk = {n: (kpts[n] - K[[0, 1], [2, 2]]) / K[[0, 1], [0, 1]]
+              for n in names}
+        obs = [(cmap[n], pi, nk[n][ki]) for pi, tr in
+               enumerate(rec.track_obs) for n, ki in tr]
+        R0 = np.stack([rec.poses[n][0] for n in pn])
+        R0 = np.stack([r @ rodrigues(rng.normal(size=3) * 1e-3) for r in R0])
+        args = [R0, np.stack([rec.poses[n][1] for n in pn])
+                + rng.normal(size=(len(pn), 3)) * 1e-3,
+                rec.xyz + rng.normal(size=rec.xyz.shape) * 1e-3,
+                np.array([o[0] for o in obs]), np.array([o[1] for o in obs]),
+                np.stack([o[2] for o in obs]), np.ones(len(obs)),
+                (np.arange(len(pn)) > 0).astype(np.float64)]
+        host = [torch.from_numpy(np.asarray(a)) for a in args]
+        host = [a if a.dtype == torch.int64 else a.to(f64) for a in host]
+        got = M.ba_steps(*(a.to(dev) for a in host))
+        want = M.ba_steps(*host)
+        ba = [rel(g, w) for g, w in zip(got, want)]
+        # PnP with fixed row indices: the last registered view's 2D-3D
+        # correspondences
+        name = pn[-1]
+        kis, pis = zip(*[(ki, pi) for pi, tr in enumerate(rec.track_obs)
+                         for n, ki in tr if n == name])
+        X = torch.from_numpy(rec.xyz[list(pis)]).to(f64)
+        uv = torch.from_numpy(nk[name][list(kis)]).to(f64)
+        w = torch.ones(len(X), dtype=f64)
+        idx = torch.randint(len(X), (512, 6),
+                            generator=torch.Generator().manual_seed(30))
+        thr = 4.0 / K[0, 0]
+        got = M.pnp_ransac_device(X.to(dev), uv.to(dev), w.to(dev),
+                                  idx.to(dev), thr)
+        want = M.pnp_ransac_device(X, uv, w, idx, thr)
+        pnp = [rel(g, w_) for g, w_ in zip(got[:2], want[:2])]
+        pnp_inl = bool(torch.equal(got[2].cpu(), want[2]))
+        # triangulate_tracks: the ground-truth poses as a text model, the
+        # verified matches' tracks
+        model = T.TextModel(
+            cameras={1: T.Camera(1, "PINHOLE", *wh, np.array(
+                [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))},
+            images={i + 1: T.Image(i + 1, M.rotmat_to_qvec(R), t, 1, n)
+                    for i, (n, (R, t)) in enumerate(zip(names, cams))})
+        n2i = {n: i + 1 for i, n in enumerate(names)}
+        tracks = T.build_tracks(list(verified), verified, {})
+        tc = T.triangulate_tracks(model, n2i, kpts, tracks, device=dev,
+                                  dtype=f64)
+        th = T.triangulate_tracks(model, n2i, kpts, tracks, device="cpu",
+                                  dtype=f64)
+        tri = float(np.abs(tc[0] - th[0]).max() / np.abs(th[0]).max())
+        tri_ok = bool(np.array_equal(tc[1], th[1]))
+        print(f"  float64 card against CPU (limit {SFM_TOL} relative): "
+              f"ba_steps ({len(pn)} cameras, {len(rec.xyz)} points, "
+              f"{len(obs)} observations, 12 iterations) R {ba[0]:.2e} t "
+              f"{ba[1]:.2e} X {ba[2]:.2e}; PnP ({len(X)} correspondences, "
+              f"512 fixed hypotheses) R {pnp[0]:.2e} t {pnp[1]:.2e}, "
+              f"inliers equal {pnp_inl} ({int(want[3])}); "
+              f"triangulate_tracks ({len(tracks)} tracks) {tri:.2e}, "
+              f"validity equal {tri_ok} ({int(th[1].sum())} valid)")
+        assert max(ba + pnp + [tri]) <= SFM_TOL and pnp_inl and tri_ok
+        assert int(want[3]) >= 0.8 * len(X) and th[1].sum() > SFM_MIN_POINTS
+
 
 class Marks:
     """CUDA events at the ends of a step's stages, with each stage's peak
@@ -3162,6 +3669,152 @@ def gt_scene(rng, m: int, n_valid: int, inlier_share: float,
     return (p0.astype(np.float32), p1.astype(np.float32),
             np.arange(m) < n_valid, K.astype(np.float32),
             T.astype(np.float32))
+
+
+def rodrigues(w):
+    """(3,) axis-angle -> (3, 3) rotation, numpy."""
+    import numpy as np
+
+    th = float(np.linalg.norm(w))
+    if th < 1e-15:
+        return np.eye(3)
+    k = np.asarray(w) / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+
+def hloc_views(dev) -> list:
+    """Phase 29's views without cv2: a numpy texture (blocks of 4 px and
+    discs) as view 0, and views under five camera poses of the two-plane
+    scene of `data/synthetic.py` (plane homographies, the left half of
+    view 0 on the near plane), warped on the card by `F.grid_sample` with
+    reflected borders. Returns (H, W, 3) uint8 arrays."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gim_tpu_torch.data.synthetic import plane_homography
+
+    W, H = HLOC_WH
+    rng = np.random.default_rng(290)
+    tex = np.repeat(np.repeat(rng.integers(0, 256, (H // 4, W // 4, 3)),
+                              4, 0), 4, 1).astype(np.float32)
+    yy, xx = np.mgrid[:H, :W]
+    for _ in range(300):
+        cx, cy, r = rng.uniform(0, W), rng.uniform(0, H), rng.uniform(4, 30)
+        tex[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = rng.integers(0, 256, 3)
+    base = torch.from_numpy(tex).to(dev).permute(2, 0, 1)[None]
+    K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1.0]])
+    n1, n2 = np.array([0.05, 0.02, -1.0]), np.array([-0.03, 0.06, -1.0])
+    pix = np.stack([xx, yy, np.ones_like(xx)], -1).reshape(-1, 3).T
+
+    def source(Hm):
+        """Where each pixel of the view samples view 0 (dst -> src)."""
+        q = np.linalg.inv(Hm) @ pix
+        return (q[:2] / q[2:]).T.reshape(H, W, 2)
+
+    out = [tex.astype(np.uint8)]
+    for k in range(1, HLOC_VIEWS):
+        R = rodrigues(rng.uniform(-0.05, 0.05, 3))
+        t = np.array([rng.uniform(-0.3, 0.3), rng.uniform(-0.2, 0.2),
+                      rng.uniform(0.02, 0.1)])
+        s1 = source(plane_homography(K, R, t, n1 / np.linalg.norm(n1),
+                                     -4.0))
+        s2 = source(plane_homography(K, R, t, n2 / np.linalg.norm(n2),
+                                     -7.5))
+        src = np.where((s1[..., :1] < W / 2), s1, s2)
+        grid = torch.from_numpy(src / [W - 1, H - 1] * 2 - 1).float()
+        img = F.grid_sample(base, grid.to(dev)[None], mode="bilinear",
+                            padding_mode="reflection", align_corners=True)
+        out.append(img[0].permute(1, 2, 0).round().clamp(0, 255)
+                   .to(torch.uint8).cpu().numpy())
+    return out
+
+
+def look_at(eye, target):
+    import numpy as np
+
+    z = target - eye
+    z = z / np.linalg.norm(z)
+    x = np.cross(z, np.array([0.0, 1.0, 0.0]))
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    R = np.stack([x, y, z])                      # world->cam rows
+    return R, -R @ eye
+
+
+def sfm_scene(n_cams: int, n_pts: int, noise_px: float, seed: int):
+    """The synthetic SfM scene of the JAX package's mapper tests
+    (tests/test_mapper.py `_make_scene`): cameras on an arc looking at a
+    cloud of points, noisy projections, shuffled keypoint order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-1, -1, 4], [1, 1, 6], size=(n_pts, 3))
+    K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])
+    w, h = 640, 480
+    cams = []
+    for i in range(n_cams):
+        ang = (i / max(n_cams - 1, 1) - 0.5) * 1.2
+        eye = np.array([2.5 * np.sin(ang), 0.3 * np.sin(2 * ang),
+                        5.0 - 2.5 * np.cos(ang)])
+        cams.append(look_at(eye, np.array([0.0, 0.0, 5.0])))
+    kpts, vis, order = {}, {}, {}
+    names = [f"im{i}.png" for i in range(n_cams)]
+    for name, (R, t) in zip(names, cams):
+        y = pts @ R.T + t
+        uv = (y[:, :2] / y[:, 2:]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        uv = uv + rng.normal(0, noise_px, uv.shape)
+        ok = ((y[:, 2] > 0.1) & (uv[:, 0] > 0) & (uv[:, 0] < w)
+              & (uv[:, 1] > 0) & (uv[:, 1] < h))
+        ids = np.nonzero(ok)[0]
+        perm = rng.permutation(len(ids))
+        kpts[name] = uv[ids][perm].astype(np.float32)
+        vis[name] = ids[perm]                    # row -> world point id
+        order[name] = {int(p): r for r, p in enumerate(ids[perm])}
+    return names, cams, pts, K, (w, h), kpts, vis, order
+
+
+def write_sfm_db(path, names, K, wh, kpts, order) -> int:
+    """The scene's COLMAP database (tests/test_mapper.py `_write_db`):
+    every pair sharing >= 8 points, verified. Returns the pair count."""
+    import numpy as np
+
+    from gim_tpu_torch.hloc.database import ColmapDB
+
+    db = ColmapDB(str(path))
+    cam = db.add_camera(1, *wh, np.array([K[0, 0], K[1, 1], K[0, 2],
+                                          K[1, 2]]))
+    ids = {n: db.add_image(n, cam) for n in names}
+    for n in names:
+        db.add_keypoints(ids[n], kpts[n] + 0.5)
+    n_pairs = 0
+    for i, n0 in enumerate(names):
+        for n1 in names[i + 1:]:
+            shared = sorted(set(order[n0]) & set(order[n1]))
+            m = np.array([[order[n0][p], order[n1][p]] for p in shared],
+                         np.uint32)
+            if len(m) < 8:
+                continue
+            db.add_matches(ids[n0], ids[n1], m)
+            db.add_two_view_geometry(ids[n0], ids[n1], m, config=3)
+            n_pairs += 1
+    db.close()
+    return n_pairs
+
+
+def align_similarity(A, B):
+    """s, R, t minimizing ||s R A + t - B|| (Umeyama)."""
+    import numpy as np
+
+    muA, muB = A.mean(0), B.mean(0)
+    Ac, Bc = A - muA, B - muB
+    U, S, Vt = np.linalg.svd(Bc.T @ Ac / len(A))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / (Ac ** 2).mean(0).sum()
+    return s, R, muB - s * R @ muA
 
 
 def zeb_batch(rng, i: int) -> dict:
@@ -3389,6 +4042,8 @@ def main() -> int:
         s.phase("27 ZEB across two processes on one card",
                 s.zeb_two_processes)
         s.phase("28 the video factory", s.factory)
+        s.phase("29 hloc matching on the card", s.hloc_matching)
+        s.phase("30 SfM on the card", s.sfm)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

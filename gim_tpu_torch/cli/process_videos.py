@@ -6,10 +6,11 @@ lease scheduler over 24 (method, skip, resize) tasks per video,
 ref process_videos.sh:34-152). Downloading is out of scope
 (`--video_dir` takes videos already on disk); the task matrix and its
 resumable order are kept. Tasks run one after the other on the card;
-several hosts shard the video list by --shard / --num_shards. Unlike the
-JAX scheduler, a failed task is not logged and skipped: it stops the run,
-and since every store is resumable, running again continues where it
-stopped.
+several hosts shard the video list by --shard / --num_shards. As in the
+JAX scheduler, a failed task is logged (with its traceback) and the rest
+of the matrix runs; the port then exits with status 1 naming every failed
+task, so no failure passes unseen. Every store is resumable, so running
+again redoes only what is missing.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
+import traceback
 from os.path import join
 
 DEFAULT_METHODS = ("root_sift", "gim_lightglue", "gim_loftr", "gim_dkm")
@@ -61,6 +63,7 @@ def main(argv=None):
     videos = videos[args.shard::args.num_shards]
     print(f"[scheduler] {len(videos)} videos, methods {args.methods}")
 
+    failed = []
     for vid in videos:
         path = join(args.video_dir, vid)
         vs = VideoStreamer(path)
@@ -69,10 +72,19 @@ def main(argv=None):
         tasks = tasks_for(fps, args.methods, not args.no_resize_round)
         print(f"[scheduler] {vid}: fps {fps:.0f}, {len(tasks)} tasks")
         for method, skip, resize in tasks:
-            process_video(path, args.labels_root, method, skip,
-                          args.img_sizes[0], ckpts.get(method),
-                          max_pairs=args.max_pairs, resize=resize,
-                          device=args.device)
+            task = f"({vid},{method},{skip},r{resize})"
+            try:
+                process_video(path, args.labels_root, method, skip,
+                              args.img_sizes[0], ckpts.get(method),
+                              max_pairs=args.max_pairs, resize=resize,
+                              device=args.device)
+            except Exception as e:  # resumable: log, run the rest, fail last
+                traceback.print_exc()
+                print(f"[scheduler] task {task} failed: {e}", flush=True)
+                failed.append(task)
+    if failed:
+        raise SystemExit(f"[scheduler] {len(failed)} task(s) failed: "
+                         f"{' '.join(failed)}")
 
 
 if __name__ == "__main__":

@@ -40,18 +40,37 @@ def safe_l2_normalize(x: torch.Tensor, dim: int = -1,
     return x * torch.rsqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
 
 
+class OrderedSegments:
+    """Sums of rows by destination whose result does not depend on the
+    run, for one `index` used many times: the rows bound for one
+    destination are summed in their order in `index` (a stable sort, then
+    `torch.segment_reduce`). The sort and the destinations (one host read)
+    are taken once, here. The CUDA `index_add_` adds with atomics, in any
+    order."""
+
+    def __init__(self, index: torch.Tensor):
+        keys, self.order = torch.sort(index, stable=True)
+        self.dest, self.counts = torch.unique_consecutive(
+            keys, return_counts=True)
+
+    def add_(self, acc: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        """`acc.index_add_(0, index, values)` in index order; values of
+        any rank (summed as rows of their flattened trailing dims)."""
+        rows = values[self.order]
+        sums = torch.segment_reduce(rows.reshape(len(rows), -1)
+                                    if rows.dim() > 2 else rows, "sum",
+                                    lengths=self.counts, axis=0, unsafe=True)
+        acc[self.dest] = acc[self.dest] + sums.reshape(
+            (len(self.dest),) + values.shape[1:])
+        return acc
+
+
 def ordered_index_add_(acc: torch.Tensor, index: torch.Tensor,
                        values: torch.Tensor) -> torch.Tensor:
     """`acc.index_add_(0, index, values)` whose result does not depend on
     the run: the rows bound for one destination are summed in their order
-    in `index` (a stable sort, then `torch.segment_reduce`), then added to
-    `acc` once. The CUDA `index_add_` adds with atomics, in any order."""
-    keys, order = torch.sort(index, stable=True)
-    dest, counts = torch.unique_consecutive(keys, return_counts=True)
-    sums = torch.segment_reduce(values[order], "sum", lengths=counts, axis=0,
-                                unsafe=True)
-    acc[dest] = acc[dest] + sums
-    return acc
+    in `index` (`OrderedSegments`), then added to `acc` once."""
+    return OrderedSegments(index).add_(acc, values)
 
 
 def _source_index(coord: torch.Tensor, size: int, align_corners: bool,

@@ -9,8 +9,9 @@ Tolerances: the same pairs, raw match counts and headers; the labels'
 rows agree on >= 99 % (float32 rows rounded to 1e-3 px), as
 tests/test_torch_geometry.py holds RANSAC's inliers (its IRLS refits
 round differently in the two packages). `walk_viz` and `process_videos`
-run on the port's outputs (the JAX scheduler swallows a task's failure, the
-port's does not, so their stores are compared through process_video).
+run on the port's outputs (the JAX scheduler swallows a task's failure;
+the port's logs it, runs the rest and exits 1 naming it, so their stores
+are compared through process_video).
 """
 
 import os
@@ -191,6 +192,38 @@ def test_process_videos_runs_the_task_matrix(tmp_path, monkeypatch):
     assert (tpv.LOW_FPS_SKIPS, tpv.HIGH_FPS_SKIPS) == (jpv.LOW_FPS_SKIPS,
                                                       jpv.HIGH_FPS_SKIPS)
     assert {k["device"] for _, k in calls} == {"cpu"}
+
+
+def test_process_videos_runs_the_rest_after_a_failed_task(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """One task raises: the others' stores are written, the failure is
+    logged, and the run exits 1 naming the failed task."""
+    from gim_tpu_torch.cli import process_videos as tpv
+    from gim_tpu_torch.cli import video_preprocessor as tv
+
+    vdir = tmp_path / "videos"
+    vdir.mkdir()
+    _write_synth_video(str(vdir / "a.mp4"))
+    out = tmp_path / "labels"
+
+    def fake(path, labels_root, method, skip, *a, resize=False, **k):
+        if (method, skip, resize) == ("gim_dkm", 20, False):
+            raise RuntimeError("planted failure")
+        store = os.path.join(labels_root, f"{method}_{skip}_{resize}.npy")
+        os.makedirs(labels_root, exist_ok=True)
+        np.save(store, np.zeros((1, 4), np.float32))
+
+    monkeypatch.setattr(tv, "process_video", fake)
+    with pytest.raises(SystemExit) as e:
+        tpv.main(["--video_dir", str(vdir), "--labels_root", str(out),
+                  "--methods", "root_sift", "gim_dkm", "--device", "cpu"])
+    assert "1 task(s) failed: (a.mp4,gim_dkm,20,rFalse)" in str(e.value.code)
+    log = capsys.readouterr()
+    assert "planted failure" in log.out + log.err
+    written = sorted(os.listdir(out))
+    assert len(written) == 11 and "gim_dkm_20_False.npy" not in written
+    assert "gim_dkm_40_True.npy" in written     # tasks after the failure
 
 
 def test_demo_cli_matches_jax(tmp_path, jax_draws, capsys):

@@ -53,7 +53,17 @@ def test_port_imports_no_jax_and_no_jax_package():
             "gim_tpu_torch/cli/propagate.py",
             "gim_tpu_torch/cli/process_videos.py",
             "gim_tpu_torch/cli/walk_viz.py",
-            "gim_tpu_torch/cli/demo.py"} <= names
+            "gim_tpu_torch/cli/demo.py",
+            "gim_tpu_torch/cli/reconstruction_mvs.py",
+            "gim_tpu_torch/hloc/__init__.py",
+            "gim_tpu_torch/hloc/database.py",
+            "gim_tpu_torch/hloc/quantize.py",
+            "gim_tpu_torch/hloc/pipeline.py",
+            "gim_tpu_torch/hloc/reconstruction.py",
+            "gim_tpu_torch/hloc/triangulation.py",
+            "gim_tpu_torch/hloc/mapper.py",
+            "gim_tpu_torch/utils/logging.py",
+            "gim_tpu_torch/utils/profiling.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -82,13 +92,19 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["Matcher", "from_checkpoint", "match_fn",
-                                   "train_cli"])
+                                   "train_cli", "reconstruction_cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry,
                                                            tmp_path):
     cfg = tconfig.GimConfig(loftr=tconfig.LoFTRConfig(layer_names_c=1))
     x = torch.zeros(1, 3, 64, 64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if entry == "train_cli":
+        if entry == "reconstruction_cli":
+            from gim_tpu_torch.hloc import reconstruction
+
+            (tmp_path / "images").mkdir()
+            reconstruction.main(["--scene_dir", str(tmp_path),
+                                 "--model", "root_sift"])
+        elif entry == "train_cli":
             from gim_tpu_torch.cli import train
 
             train.main(["--labels_root", str(tmp_path),
