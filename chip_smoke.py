@@ -35,13 +35,20 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    gim_dkm in bf16 and on ragged cases (C 40 -> 56, widths 200 and 203;
    192 -> 144) in float32 and bf16, with timings of kernel, plain version
    and the switches-off block (PyTorch's depthwise conv, BN, ReLU, 1x1
-   conv) beside the bound;
+   conv) beside the bound; then K2's float32 kernel (3xTF32 1x1) on
+   float32 edges (one row, one column, 1 x 1, C 7 -> 5, 192 -> 192) and
+   at both heads' eight full shapes (C_out = C) against its plain version
+   at TOL_F32, timed beside the float32 switches-off block (TF32 off), its
+   floor and its FP32-FMA figure;
 7. kernel K3 (flash_attention) against its plain version on the strided
    q, k, v views of a qkv split at the ViT-L (2, 16, 2305, 64) and
    coordinate-decoder (2, 8, 2304, 128) shapes in bf16 and on ragged
-   cases (contiguous and strided, float32 and bf16), with
-   `F.scaled_dot_product_attention`'s time on the same views as the
-   library yardstick (the port never calls it);
+   cases (contiguous and strided, float32 and bf16; float32 also at N = 1
+   and 257), with `F.scaled_dot_product_attention`'s time on the same
+   views as the library yardstick (the port never calls it); then K3's
+   float32 kernel (3xTF32) at those two shapes against its plain version
+   at TOL_ATTN_F32, timed beside SDPA in float32 (TF32 off), its floor and
+   its FP32-FMA figure;
 8. main path of gim_roma: `Matcher("gim_roma")` at full width (DINOv2
    ViT-L/14, VGG19-bn, GP, 5-block decoder, five ConvRefiners, 672 ->
    1344 px, 5000 balanced samples) at the operating point (bf16,
@@ -155,17 +162,39 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    card's uniforms); the dense stage again with GIM_TPU_FUSED_REFINER=1:
    K2 launches per pair asserted, keypoints against the switch-off run,
    and K2's float32 kernel at each input shape that run gave it against
-   its plain version at TOL_F32, timed beside its float32 bound (its own
-   `refiner_block_f32` entry of the kernels line);
+   its plain version at TOL_F32, timed beside its floor and FP32-FMA
+   figure (printed: the `refiner_block_f32` entry takes phase 6's times);
 30. SfM on the card: `hloc/mapper.incremental_mapping_native` on the
    60-camera synthetic database of the JAX package's envelope test (400
    points, 1770 verified pairs, 0.3 px), asserting its bounds; a second
    run equal bit for bit, under the profiler (busy share) with host syncs
    counted; stage ms per registration; `ba_steps`, PnP with fixed row
-   indices and `triangulate_tracks` card against CPU in float64.
+   indices and `triangulate_tracks` card against CPU in float64;
+31. the dense heads' float32 path at full width: `Matcher("gim_roma")`
+   (phase 8's inputs) and `Matcher("gim_dkm")` (phase 10's inputs) at
+   their default dtype, float32, as `cli/zeb_eval.build_matcher` builds
+   them, TF32 off, seeded random weights; both switches on, then both
+   off; per head and setting one warm-up and 3 timed calls of 1 pair and
+   one call timed by stages; ms per pair, peak memory; 32 K2 and 29 K3
+   launches per gim_roma call and 32 K2 per gim_dkm call asserted, all
+   float32, none with the switches off; warp and certainty of the warm-up
+   pair, on against off, within SWITCH_TOL on >= MIN_AGREE of pixels. For
+   gim_roma's warp the check pins the anchors: its coarse pass picks each
+   pixel's anchor by argmax over 64^2 classes, which any float32 change
+   flips where two scores tie to rounding, so the warp is held with the
+   off run's anchors imposed; K2 alone, K3 alone and torch's float32
+   attention (the control) each print the pixels they move, the anchors
+   they flip and the off run's score gap at those flips, which must lie
+   within the control's largest change of the scores.
 
 Any failed phase makes the script exit nonzero. On success the last two
-lines are the kernels' JSON summary and {"ok": true, "device": ...}.
+lines are the kernels' JSON summary and {"ok": true, "device": ...}. Its
+entries: `dsmax_stats`, `dsmax_argmax` (times from phase 3, launches
+from phase 4) and their `_f32` (phase 3, launches from phase 13);
+`refiner_block` and `flash_attention` (bf16: times from phases 6 and 7,
+launches from phases 8 and 10); `refiner_block_f32` and
+`flash_attention_f32` (float32: times from phases 6 and 7, launches from
+phase 31).
 Exits nonzero without a result when CUDA is not available or the package
 is not beside the script.
 """
@@ -194,6 +223,9 @@ PEAK_EX2 = 16 * 132 * PEAK_BF16_FLOPS / (132 * 4 * 1024)
 # that the card's own maximum SM clock gives
 PEAK_F32_FLOPS = 66.9e12
 FP32_LANES_PER_SM = 128
+# TF32 on the tensor cores (data sheet, dense): the float32 kernels' 3xTF32
+# products take three of these per multiply-add
+PEAK_TF32_FLOPS = 495e12
 
 BATCH, IMG = 8, 832
 TOL_BF16, TOL_F32, MIN_AGREE = 1e-2, 1e-4, 0.999
@@ -391,6 +423,33 @@ def bound(flops: float, nbytes: float, exps: float = 0.0,
     terms = bound_terms(flops, nbytes, exps, peak)
     top = max(terms, key=terms.get)
     return terms[top], "bytes" if top == "bytes" else "operations"
+
+
+def k2_f32_bounds(B: int, C: int, C_out: int, H: int, W: int):
+    """K2's float32 kernel on (B, C, H, W) -> C_out: (floor ms, what sets
+    it, FP32-FMA ms). The floor is the larger of the bytes (x read, out
+    written, the parameters once) at PEAK_BYTES and the depthwise's FP32
+    FMAs at PEAK_F32_FLOPS plus the 1x1's three TF32 products at
+    PEAK_TF32_FLOPS; the FP32-FMA figure takes every FLOP at
+    PEAK_F32_FLOPS (or the bytes, where larger)."""
+    px = B * H * W
+    dw, pw = 2.0 * px * 25 * C, 2.0 * px * C * C_out
+    nbytes = 4.0 * px * (C + C_out) + 4.0 * (27 * C + C * C_out + C_out)
+    ops_ms = (dw / PEAK_F32_FLOPS + 3 * pw / PEAK_TF32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    floor = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                                "bytes")
+    return floor[0], floor[1], max((dw + pw) / PEAK_F32_FLOPS * 1e3,
+                                   bytes_ms)
+
+
+def k3_f32_bounds(G: int, N: int, D: int):
+    """K3's float32 kernel on G heads of (N, D): (floor ms, FP32-FMA ms).
+    The floor is the three TF32 products of 4 G N^2 D FLOP at
+    PEAK_TF32_FLOPS (exps and bytes are far below it); the FP32-FMA
+    figure takes the 4 G N^2 D FLOP at PEAK_F32_FLOPS."""
+    flops = 4.0 * G * N * N * D
+    return 3 * flops / PEAK_TF32_FLOPS * 1e3, flops / PEAK_F32_FLOPS * 1e3
 
 
 def sweep_costs(B: int, L: int, S: int, C: int, n_blocks: int,
@@ -1091,6 +1150,20 @@ class Smoke:
                       f"err {err:.3e} (limit {atol} + {rtol} |plain|)")
                 assert torch.allclose(got.float(), want, rtol=rtol,
                                       atol=atol), (shape, dtype)
+        # float32 edges: one row, one column, C = 7 -> 5 (a partial chunk
+        # and n tile), 192 -> 192 (the most shared memory)
+        for shape, C_out in (((1, 24, 1, 37), 24), ((1, 24, 29, 1), 24),
+                             ((1, 24, 1, 1), 24), ((2, 7, 9, 13), 5),
+                             ((1, 192, 19, 40), 192)):
+            x = torch.randn(shape, device=dev, generator=g)
+            _, f = refiner_block_params(shape[1], C_out, torch.float32, g)
+            got = K.fused_dw_block(x, *f)
+            want = K.fused_dw_block_plain(x, *f)
+            err = float((got - want).abs().max())
+            print(f"  float32 edge {shape} -> {C_out}: max abs err "
+                  f"{err:.3e} (limit {TOL_F32} + {TOL_F32} |plain|)")
+            assert torch.allclose(got, want, rtol=TOL_F32, atol=TOL_F32), \
+                shape
 
         max_err = 0.0
         by = set()
@@ -1154,6 +1227,73 @@ class Smoke:
             "plain_ms": grand["plain_ms"], "bound_ms": grand["bound_ms"],
             "bound_by": "bytes" if by == {"bytes"} else "operations",
             "library_ms": None}
+        self.refiner_f32_full(g)
+
+    def refiner_f32_full(self, g):
+        """K2's float32 kernel at both heads' four full shapes (C_out = C):
+        against its plain version at TOL_F32, timed beside the
+        switches-off block in float32 (PyTorch's convolutions, TF32 off)
+        and both bounds. Writes the `refiner_block_f32` entry: one
+        gim_roma and one gim_dkm call together (8 launches a shape)."""
+        import torch
+
+        from gim_tpu_torch.models.dkm.blocks import _run_block
+        from gim_tpu_torch.ops.kernels import refiner as K
+
+        max_err, by = 0.0, set()
+        grand = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for head, shapes in (("gim_roma", REFINER_SHAPES),
+                             ("gim_dkm", DKM_REFINER_SHAPES)):
+            tot = dict(ms=0.0, plain_ms=0.0, off_ms=0.0, bound_ms=0.0,
+                       fma_ms=0.0)
+            for shape in shapes:
+                B, C, H, W = shape
+                x = torch.randn(shape, device=self.dev, generator=g)
+                blk, f = refiner_block_params(C, C, torch.float32, g)
+                got = K.fused_dw_block(x, *f)
+                want = K.fused_dw_block_plain(x, *f)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                ok = torch.allclose(got, want, rtol=TOL_F32, atol=TOL_F32)
+                del got, want
+                t_k = cuda_ms(lambda: K.fused_dw_block(x, *f), 10)
+                t_p = cuda_ms(lambda: K.fused_dw_block_plain(x, *f), 10)
+                t_off = cuda_ms(lambda: _run_block(blk, x, torch.float32),
+                                10)
+                b_ms, b_by, fma = k2_f32_bounds(B, C, C, H, W)
+                by.add(b_by)
+                print(f"  {head} float32 {shape} -> {C}: max abs err "
+                      f"{err:.3e} against the plain version on the same "
+                      f"inputs (limit {TOL_F32} + {TOL_F32} |plain|)")
+                print(f"    kernel {t_k:.3f} ms ({t_k / b_ms:.2f}x its floor "
+                      f"{b_ms:.3f} ms ({b_by}), {t_k / fma:.2f}x the "
+                      f"FP32-FMA figure {fma:.3f} ms), plain {t_p:.3f} ms, "
+                      f"switches-off block {t_off:.3f} ms "
+                      f"({t_k / t_off:.3f}x) [{self.card}]")
+                assert ok, shape
+                max_err = max(max_err, err)
+                for key, val in (("ms", t_k), ("plain_ms", t_p),
+                                 ("off_ms", t_off), ("bound_ms", b_ms),
+                                 ("fma_ms", fma)):
+                    tot[key] += HIDDEN_BLOCKS * val
+                del x
+            print(f"  K2 float32 per {head} call ({HIDDEN_BLOCKS} blocks at "
+                  f"each shape): kernel {tot['ms']:.3f} ms, floor "
+                  f"{tot['bound_ms']:.3f} ms ({tot['ms'] / tot['bound_ms']:.2f}"
+                  f"x), FP32-FMA figure {tot['fma_ms']:.3f} ms, plain "
+                  f"{tot['plain_ms']:.3f} ms, switches-off blocks "
+                  f"{tot['off_ms']:.3f} ms ({tot['ms'] / tot['off_ms']:.3f}x)"
+                  f" [{self.card}]")
+            for k in grand:
+                grand[k] += tot[k]
+        self.kernels["refiner_block_f32"] = {
+            "name": "refiner_block_f32", "route": "cuda",
+            "source": "gim_tpu_torch/csrc/refiner.cu",
+            "replaces": "gim_tpu/ops/pallas_kernels/refiner.py:39",
+            "launches": 0, "max_abs_err": max_err, "ms": grand["ms"],
+            "plain_ms": grand["plain_ms"], "bound_ms": grand["bound_ms"],
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": None}
 
     # -- 7 ------------------------------------------------------------------
     def flash_vs_plain(self):
@@ -1195,6 +1335,17 @@ class Smoke:
                       f"{err:.3e} (limit {atol} + {rtol} |plain|)")
                 assert torch.allclose(got.float(), want, rtol=rtol,
                                       atol=atol)
+            # float32 edges: one token, and phase 9's 257 (16^2 + 1)
+            for N in (1, 257):
+                q, k, v = qkv(2, 3, N, D, torch.float32, 3.0)
+                got, want = K.flash_sdpa(q, k, v), K.flash_sdpa_plain(q, k, v)
+                err = float((got - want).abs().max())
+                print(f"  f32 strided (2, 3, {N}, {D}): max abs err "
+                      f"{err:.3e} (limit {TOL_ATTN_F32} + {TOL_ATTN_F32} "
+                      f"|plain|)")
+                assert torch.allclose(got, want, rtol=TOL_ATTN_F32,
+                                      atol=TOL_ATTN_F32), (N, D)
+        self.flash_f32_full(qkv)
 
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         max_err = 0.0
@@ -1248,6 +1399,63 @@ class Smoke:
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if by == {"operations"} else "bytes",
             "library_ms": tot["library_ms"]}
+
+    def flash_f32_full(self, qkv):
+        """K3's float32 kernel at FLASH_SHAPES on the strided views of a
+        qkv split: against its plain version at TOL_ATTN_F32, timed beside
+        `F.scaled_dot_product_attention` on the same float32 views (TF32
+        off; the port never calls it) and both bounds. Writes the
+        `flash_attention_f32` entry: one gim_roma call (24 + 5 launches)."""
+        import torch
+        import torch.nn.functional as F
+
+        from gim_tpu_torch.ops.kernels import flash as K
+
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   fma_ms=0.0)
+        max_err = 0.0
+        for (G, N, D), n in FLASH_SHAPES:
+            B, H = 2, G // 2
+            q, k, v = qkv(B, H, N, D, torch.float32, 2.0)
+            got = K.flash_sdpa(q, k, v)
+            want = K.flash_sdpa_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, rtol=TOL_ATTN_F32,
+                                atol=TOL_ATTN_F32)
+            del got, want
+            t_k = cuda_ms(lambda: K.flash_sdpa(q, k, v), 10)
+            t_p = cuda_ms(lambda: K.flash_sdpa_plain(q, k, v), 10)
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                          10)
+            b_ms, fma = k3_f32_bounds(G, N, D)
+            print(f"  f32 strided ({B}, {H}, {N}, {D}): max abs err "
+                  f"{err:.3e} against the plain version on the same inputs "
+                  f"(limit {TOL_ATTN_F32} + {TOL_ATTN_F32} |plain|)")
+            print(f"    kernel {t_k:.3f} ms ({t_k / b_ms:.2f}x its floor "
+                  f"{b_ms:.3f} ms (operations), {t_k / fma:.2f}x the "
+                  f"FP32-FMA figure {fma:.3f} ms, {t_k / t_l:.3f}x "
+                  f"F.scaled_dot_product_attention {t_l:.3f} ms), plain "
+                  f"{t_p:.3f} ms [{self.card}]")
+            assert ok, (G, N, D)
+            max_err = max(max_err, err)
+            for key, val in (("ms", t_k), ("plain_ms", t_p),
+                             ("library_ms", t_l), ("bound_ms", b_ms),
+                             ("fma_ms", fma)):
+                tot[key] += n * val
+        print(f"  K3 float32 per gim_roma call (24 ViT-L + 5 decoder "
+              f"attentions): kernel {tot['ms']:.3f} ms, floor "
+              f"{tot['bound_ms']:.3f} ms ({tot['ms'] / tot['bound_ms']:.2f}x),"
+              f" FP32-FMA figure {tot['fma_ms']:.3f} ms, plain "
+              f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms "
+              f"({tot['ms'] / tot['library_ms']:.3f}x) [{self.card}]")
+        self.kernels["flash_attention_f32"] = {
+            "name": "flash_attention_f32", "route": "cuda",
+            "source": "gim_tpu_torch/csrc/flash.cu",
+            "replaces": "gim_tpu/ops/pallas_kernels/flash.py:37",
+            "launches": 0, "max_abs_err": max_err, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations", "library_ms": tot["library_ms"]}
 
     # -- 8 ------------------------------------------------------------------
     def roma_main_path(self):
@@ -3357,15 +3565,15 @@ class Smoke:
         """K2's float32 kernel at the inputs slice 8's dense stage gave it
         (`seen`: (shape, C_out, dtype) -> launches over `calls` calls): each
         shape on fresh random blocks against the plain version at TOL_F32,
-        and timed beside its float32 bound. Its own entry of the kernels
-        line, whose times are one dense call's launches together."""
+        timed beside its floor and FP32-FMA figure. Printed only: the
+        `refiner_block_f32` entry takes its times from phase 6 (the same
+        shapes, gim_dkm's) and its launches from phase 31."""
         import torch
 
         from gim_tpu_torch.ops.kernels import refiner as K
 
         g = torch.Generator(device=self.dev).manual_seed(290)
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-        max_err, by = 0.0, set()
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, fma_ms=0.0)
         for (shape, C_out, dtype), n in sorted(seen.items(),
                                                key=lambda kv: kv[0][:2]):
             B, C, H, W = shape
@@ -3379,35 +3587,23 @@ class Smoke:
             del got, want
             t_k = cuda_ms(lambda: K.fused_dw_block(x, *f), 10)
             t_p = cuda_ms(lambda: K.fused_dw_block_plain(x, *f), 10)
-            flops = 2.0 * B * H * W * (25 * C + C * C_out)
-            nbytes = 4.0 * B * H * W * (C + C_out) + 4.0 * (
-                27 * C + C * C_out + C_out)
-            b_ms, b_by = bound(flops, nbytes, peak=PEAK_F32_FLOPS)
-            by.add(b_by)
+            b_ms, b_by, fma = k2_f32_bounds(B, C, C_out, H, W)
             print(f"  K2 float32 {shape} -> {C_out} ({n // calls} launches "
                   f"per call): max abs err {err:.3e} against the plain "
                   f"version on the same inputs (limit {TOL_F32} + {TOL_F32} "
                   f"|plain|); kernel {t_k:.3f} ms, {t_k / b_ms:.2f}x its "
-                  f"bound {b_ms:.3f} ms ({b_by}), plain {t_p:.3f} ms "
-                  f"[{self.card}]")
+                  f"floor {b_ms:.3f} ms ({b_by}), FP32-FMA figure "
+                  f"{fma:.3f} ms, plain {t_p:.3f} ms [{self.card}]")
             assert ok, shape
-            max_err = max(max_err, err)
-            tot["ms"] += n / calls * t_k
-            tot["plain_ms"] += n / calls * t_p
-            tot["bound_ms"] += n / calls * b_ms
+            for key, val in (("ms", t_k), ("plain_ms", t_p),
+                             ("bound_ms", b_ms), ("fma_ms", fma)):
+                tot[key] += n / calls * val
             del x
         print(f"  K2 float32 per dense call ({launches // calls} launches): "
               f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-              f"bound {tot['bound_ms']:.3f} ms; kernel / bound "
-              f"{tot['ms'] / tot['bound_ms']:.2f} [{self.card}]")
-        self.kernels["refiner_block_f32"] = {
-            "name": "refiner_block_f32", "route": "cuda",
-            "source": "gim_tpu_torch/csrc/refiner.cu",
-            "replaces": "gim_tpu/ops/pallas_kernels/refiner.py:39",
-            "launches": launches, "max_abs_err": max_err, "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes" if by == {"bytes"} else "operations",
-            "library_ms": None}
+              f"floor {tot['bound_ms']:.3f} ms "
+              f"({tot['ms'] / tot['bound_ms']:.2f}x), FP32-FMA figure "
+              f"{tot['fma_ms']:.3f} ms [{self.card}]")
 
     def sfm(self):
         """Phase 30: the native mapper on the card at the JAX package's
@@ -3574,6 +3770,240 @@ class Smoke:
         assert int(want[3]) >= 0.8 * len(X) and th[1].sum() > SFM_MIN_POINTS
 
 
+    # -- 31 -----------------------------------------------------------------
+    def dense_f32_main_path(self):
+        """Phase 31: the float32 path of the dense heads at full width.
+        `Matcher("gim_roma")` and `Matcher("gim_dkm")` at their default
+        dtype (float32, as `cli/zeb_eval.build_matcher` builds them), TF32
+        off, seeded random weights; both switches on, then both off; per
+        head and setting one warm-up and 3 timed calls of 1 pair (phase 8's
+        and phase 10's inputs) and one call timed by stages. Asserts 32 K2
+        and 29 K3 float32 launches per gim_roma call, 32 K2 per gim_dkm
+        call, none with the switches off, and warp and certainty of the
+        warm-up pair on against off within SWITCH_TOL. The counters are set
+        to 0 just before and read just after: the launches of the
+        `refiner_block_f32` and `flash_attention_f32` entries."""
+        import torch
+
+        from gim_tpu_torch.config import GimConfig
+        from gim_tpu_torch.models import dinov2
+        from gim_tpu_torch.models.dkm import blocks as dkm_blocks
+        from gim_tpu_torch.models.roma import model as roma_model
+        from gim_tpu_torch.ops.kernels import flash, refiner
+
+        cfg = GimConfig()
+        assert cfg.roma.dtype == cfg.dkm.dtype == "float32"
+        dev = torch.device(self.dev)
+        g = torch.Generator(device=dev).manual_seed(31)
+        shape = (1, 3, ROMA_IMG, ROMA_IMG)
+        roma_pairs = [(torch.rand(shape, device=dev, generator=g),
+                       torch.rand(shape, device=dev, generator=g))
+                      for _ in range(3)]
+        S, (h, w) = DKM_CANVAS, DKM_CONTENT
+        mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
+        mask[:, :h, :w] = True
+        dkm_pairs = [(torch.rand(1, 3, S, S, device=dev, generator=g) * mask,
+                      torch.rand(1, 3, S, S, device=dev, generator=g) * mask,
+                      None, None, mask, mask) for _ in range(3)]
+
+        # the kernels' inputs are recorded on the way to their wrappers
+        seen = collections.Counter()
+        k2, k3 = dkm_blocks.fused_dw_block, dinov2.flash_sdpa
+
+        def rec_k2(x, *f):
+            seen[("refiner_block", x.dtype)] += 1
+            return k2(x, *f)
+
+        def rec_k3(q, k, v):
+            seen[("flash_attention", q.dtype)] += 1
+            return k3(q, k, v)
+
+        # gim_roma's coarse anchor logits of a run's first call ("cls"),
+        # and anchors to impose in place of their argmax ("pin")
+        coarse, cls_fn = {}, roma_model.cls_to_flow_refine
+
+        def rec_cls(cls_logits, mode=None):
+            coarse.setdefault("cls", cls_logits.detach().clone())
+            return cls_fn(cls_logits, coarse.get("pin", mode))
+
+        for c in (refiner.LAUNCHES, flash.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        dkm_blocks.fused_dw_block, dinov2.flash_sdpa = rec_k2, rec_k3
+        roma_model.cls_to_flow_refine = rec_cls
+        try:
+            for head, pairs, per_call in (
+                    ("gim_roma", roma_pairs,
+                     {"refiner_block": ROMA_K2_PER_CALL,
+                      "flash_attention": ROMA_K3_PER_CALL}),
+                    ("gim_dkm", dkm_pairs,
+                     {"refiner_block": DKM_K2_PER_CALL,
+                      "flash_attention": 0})):
+                self.dense_f32_head(head, cfg, pairs, per_call, coarse)
+        finally:
+            dkm_blocks.fused_dw_block, dinov2.flash_sdpa = k2, k3
+            roma_model.cls_to_flow_refine = cls_fn
+        got = {**refiner.LAUNCHES, **flash.LAUNCHES}
+        assert set(seen) <= {(k, torch.float32) for k in got}, seen
+        assert {k: seen[(k, torch.float32)] for k in got} == got, (seen, got)
+        for k, n in got.items():
+            self.kernels[k + "_f32"]["launches"] = n
+        print(f"  launches in this phase: {got} (all float32)")
+
+    def dense_f32_head(self, head: str, cfg, pairs, per_call: dict,
+                       coarse: dict):
+        """Phase 31 for one head (see `dense_f32_main_path`); `coarse`
+        receives gim_roma's coarse anchor logits."""
+        import torch
+
+        from gim_tpu_torch.api import Matcher
+        from gim_tpu_torch.ops.kernels import flash, refiner
+
+        t0 = time.perf_counter()
+        m = Matcher(head, cfg, generator=torch.Generator().manual_seed(0),
+                    device="cuda")
+        assert not (torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+        print(f"  {head}: matcher built in {time.perf_counter() - t0:.1f} s")
+        n = (cfg.roma if head == "gim_roma" else cfg.dkm).num_samples
+        first = {}
+        m.model.register_forward_hook(
+            lambda mod, inp, out: first.setdefault("out", (out[0].clone(),
+                                                           out[1].clone())))
+
+        def counts():
+            return {**refiner.LAUNCHES, **flash.LAUNCHES}
+
+        res = {}
+        for on in (True, False):
+            first.clear()
+            coarse.clear()
+            before = counts()
+            with switches(on):
+                r = m.match(*pairs[0])                  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for p in pairs:
+                    t1 = time.perf_counter()
+                    r = m.match(*p)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t1)
+                    assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
+                    assert r.kpts1.shape == (1, n, 2)
+                    assert r.conf.shape == (1, n)
+                    for t in (r.kpts0, r.kpts1, r.conf):
+                        assert bool(torch.isfinite(t).all())
+                peak = torch.cuda.max_memory_allocated()
+                (self.roma_stages if head == "gim_roma"
+                 else self.dkm_stages)(m, pairs[1])
+            calls = len(pairs) + 2
+            after = counts()
+            ran = {k: after[k] - before[k] for k in per_call}
+            want = {k: (v * calls if on else 0) for k, v in per_call.items()}
+            assert ran == want, (head, on, ran, want)
+            ms = statistics.median(times) * 1e3
+            res[on] = (ms, first["out"], coarse.get("cls"))
+            print(f"  {head} float32, switches {'on' if on else 'off'}: "
+                  f"median {ms:.2f} ms per pair (runs "
+                  f"{[round(t * 1e3, 2) for t in times]}), peak memory "
+                  f"{peak / 2**30:.2f} GiB, {int(r.valid.sum())} of {n} "
+                  f"valid; launches {ran} over {calls} calls [{self.card}]")
+        on_ms, off_ms = res[True][0], res[False][0]
+        print(f"  {head} float32: switches on {on_ms:.2f} ms against off "
+              f"{off_ms:.2f} ms per pair (on - off {on_ms - off_ms:+.2f} ms, "
+              f"on / off {on_ms / off_ms:.3f}) [{self.card}]")
+        if head == "gim_roma":
+            self.roma_anchor_runs(m, pairs[0], first, coarse, res)
+        for i, name in enumerate(("warp", "cert")):
+            moved, dmax = moved_share(res[True][1], res[False][1], i)
+            print(f"  {head} {name}: on against off within {SWITCH_TOL} on "
+                  f"{1.0 - moved:.6f} of pixels (moved {moved:.6f}), max diff "
+                  f"{dmax:.3e}")
+            if head == "gim_roma" and name == "warp":
+                continue      # held with the anchors pinned (above)
+            assert moved <= 1.0 - MIN_AGREE, (head, name, moved)
+        del m, res, first
+        coarse.clear()
+        torch.cuda.empty_cache()
+
+    def roma_anchor_runs(self, m, pair, first, coarse, res):
+        """Phase 31, gim_roma: what moves its warp. The coarse pass picks
+        each pixel's anchor by argmax over 64^2 classes, so a float32
+        change anywhere upstream flips the anchor where the two best
+        scores tie to rounding, and moves that region's warp by an anchor
+        spacing. One call each on `pair`: K2 alone, K3 alone, and the
+        switches off with torch's float32 attention in place of the plain
+        one (the control), each against the off run: pixels moved past
+        SWITCH_TOL, anchors flipped, the largest logit difference and the
+        off run's gap between its best score and the flipped-to anchor's,
+        which must lie within the control's largest logit difference (a
+        tie that any float32 attention may flip). Then the switches on
+        with the off run's anchors imposed: warp and certainty within
+        SWITCH_TOL on >= MIN_AGREE of pixels."""
+        import torch
+        import torch.nn.functional as F
+
+        from gim_tpu_torch.models import dinov2
+
+        def torch_sdpa(q, k, v, mask=None):
+            return F.scaled_dot_product_attention(q, k, v)
+
+        def once(fused: str, vit: str, sdpa=None):
+            first.clear()
+            coarse.pop("cls", None)
+            with env(GIM_TPU_FUSED_REFINER=fused, GIM_TPU_FLASH_VIT=vit), \
+                    swapped(dinov2, "sdpa", sdpa or dinov2.sdpa):
+                m.match(*pair)
+            return first["out"], coarse["cls"]
+
+        runs = {"on": res[True][1:], "K2 only": once("1", "0"),
+                "K3 only": once("0", "1"),
+                "control": once("0", "0", torch_sdpa)}
+        off_out, off_cls = res[False][1:]
+        off_mode = torch.softmax(off_cls, -1).argmax(-1)
+        ulp = float(off_cls.abs().amax()) * 2.0 ** -23
+        control_diff = float((runs["control"][1] - off_cls).abs().amax())
+        for what in ("control", "on", "K2 only", "K3 only"):
+            out, cls = runs[what]
+            mode = torch.softmax(cls, -1).argmax(-1)
+            flip = mode != off_mode
+            gap = float((off_cls.amax(-1) - off_cls.gather(
+                -1, mode[..., None]).squeeze(-1))[flip].max()) \
+                if bool(flip.any()) else 0.0
+            print(f"  gim_roma {what} against off: warp moved "
+                  f"{moved_share(out, off_out, 0)[0]:.6f} of pixels past "
+                  f"{SWITCH_TOL}, {int(flip.sum())} of {flip.numel()} coarse "
+                  f"anchors flipped, logits max diff "
+                  f"{float((cls - off_cls).abs().amax()):.3e}, off's score "
+                  f"gap at the flips max {gap:.3e} ({gap / ulp:.1f} ulps of "
+                  f"the largest logit)")
+            # every flip is a tie within what torch's own float32
+            # attention moves the scores by
+            assert what == "control" or gap <= control_diff, (what, gap)
+        coarse["pin"] = off_mode
+        try:
+            out, _ = once("1", "1")
+        finally:
+            coarse.pop("pin")
+        for i, name in enumerate(("warp", "cert")):
+            moved, dmax = moved_share(out, off_out, i)
+            print(f"  gim_roma {name}, on with the off run's anchors, against "
+                  f"off: within {SWITCH_TOL} on {1.0 - moved:.6f} of pixels "
+                  f"(moved {moved:.6f}), max diff {dmax:.3e}")
+            assert moved <= 1.0 - MIN_AGREE, ("pinned", name, moved)
+
+
+def moved_share(a, b, i: int):
+    """Share of pixels where output i (0 warp, 1 certainty) of two model
+    outputs differs by more than SWITCH_TOL (any coordinate), and the
+    largest difference."""
+    d = (a[i] - b[i]).abs()
+    if d.dim() == 4:
+        d = d.amax(-1)
+    return float((d > SWITCH_TOL).float().mean()), float(d.max())
+
+
 class Marks:
     """CUDA events at the ends of a step's stages, with each stage's peak
     memory above what was held at the start."""
@@ -3614,6 +4044,17 @@ class Marks:
             print(f"    {t:9.3f} ms  {t / total:6.3f}  {name:11s} peak "
                   f"{(peak - self.base) / 2**30:6.2f} GiB")
             prev = ev
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """module.name set to `value` for the block, restored after."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 @contextlib.contextmanager
@@ -4044,6 +4485,8 @@ def main() -> int:
         s.phase("28 the video factory", s.factory)
         s.phase("29 hloc matching on the card", s.hloc_matching)
         s.phase("30 SfM on the card", s.sfm)
+        s.phase("31 gim_roma and gim_dkm in float32 at full width",
+                s.dense_f32_main_path)
     if s.failed:
         print(f"chip_smoke: FAILED phases {s.failed}")
         return 1

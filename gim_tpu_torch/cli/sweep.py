@@ -15,9 +15,9 @@ Per-dataset settings come from the ZebSpec table (img_size 840 by default,
 a dataset whose data directory is missing is reported and skipped. Batch
 16 for gim_lightglue and 1 otherwise (ref TEST_GIM_LIGHTGLUE.sh:3). Then
 the consistency check (`cli/check.py`) and the AUC table
-(`cli/analysis.py`) over the dump directory. A failed check is reported
-and the table still printed, as in the JAX CLI, and then the sweep exits
-with the check's code.
+(`cli/analysis.py`) over the dump directory. A failed check is a warning
+for a partial sweep, as in the JAX CLI: it is reported, the table is
+printed and the sweep returns normally.
 """
 
 from __future__ import annotations
@@ -90,16 +90,12 @@ def main(argv=None):
 
     from gim_tpu_torch.cli import analysis, check
 
-    failed = None
     try:
         check.main(["--dir", args.out_dir])
-    except SystemExit as e:       # reported, the table printed, re-raised
+    except SystemExit as e:  # Bad consistency is a warning for partial sweeps
         print(f"[sweep] consistency check failed ({e}); see above")
-        failed = e
     analysis.main(["--dir", args.out_dir, "--wid", args.weight,
                    "--version", args.version])
-    if failed is not None:
-        raise failed
 
 
 if __name__ == "__main__":

@@ -41,8 +41,53 @@
 // What is left: at D = 64 the exp2s alone (16 a clock per SM) take as long
 // as the products, the last key tile of N = 2305 holds one key, and the
 // grid's last wave is partial.
-// float32 inputs take a plain FMA path in full float32 (no TF32), for
-// checks on the card.
+//
+// float32 design (gim_roma's default dtype). Semantics as above, with p
+// kept in float32. Both products run on the tensor cores as 3xTF32
+// (wgmma .tf32 with float32 accumulators; hopper.cuh): each operand splits
+// into hi = tf32(x) and lo = tf32(x - hi), and a product sums lo.hi +
+// hi.lo + hi.hi, which keeps float32's accuracy where one TF32 product
+// would not (tests/test_torch_flash.py emulates both).
+//   - A split pass (flash_split_f32, a small kernel before the main one)
+//     splits K into hi and lo and V into hi and lo transposed, once per
+//     call, into a scratch buffer, in tiles of BK keys (32 at D = 64, 48
+//     at D = 128) in wgmma's K-major layout without swizzle (TF32 takes
+//     no transposed operand). Split in each block instead, the same work
+//     is repeated by every query block of a head, in the block's own time.
+//   - A block is one warpgroup of 64 query rows (3 blocks an SM at
+//     D = 64, 1 at D = 128). Q is read once (16-byte cp.async from the
+//     strided view) and kept in registers as wgmma's A fragments, split
+//     once at D = 64, at each use at D = 128. Split tiles stream in by one
+//     bulk copy each into a 2-stage mbarrier ring.
+//   - S = Q K^T is wgmma.m64nBKk8 with A from registers; S's columns come
+//     in the order key_row gives the split K, so that the S registers are
+//     P V's A fragments as they stand: no shuffles and no shared-memory
+//     round trip for P. O += P V is wgmma.m64n64k8, 64 columns of D at a
+//     time. The online softmax runs on the fragments in the log2 domain.
+//   - The tensor core keeps a running sum at its own rounding, which over
+//     2305 keys cost a factor of 5 in the output's error (chip_smoke.py
+//     phase 7): each tile's P V (and each 4 k-steps of S) sums into a
+//     fresh accumulator that is added in float32.
+//   - The bf16 kernel's arrangement was built and measured in float32
+//     (f32_probe.py on an edited copy; NVIDIA H100 80GB HBM3 at 700 W;
+//     PERF.md section 6): a producer warpgroup streaming the split tiles
+//     into a ring shared by two consumer warpgroups of 64 rows (one
+//     128-row block an SM) that take turns, S_j issued beside P_{j-1} V
+//     (wait-one) at D = 64. It ran 0.486 ms against 0.424 for this
+//     kernel at (2, 16, 2305, 64), and 0.592-0.684 against 0.592-0.599
+//     (32-key tiles) at (2, 8, 2304, 128). At D = 64 three independent
+//     warpgroups an SM hide the products' latency better than two taking
+//     turns (without the wait-one the two took 0.608 ms). At D = 128 the
+//     registers force a wait after each group of S in either arrangement
+//     (hi and lo of Q for 16 k-steps, O and a fresh P V accumulator do
+//     not fit in 240), and 128-row blocks leave a last wave of 24 of 132
+//     SMs. Halving the split tiles' L2 reads (a tile serving 128 rows)
+//     gained nothing. So a block stays one warpgroup.
+// Bounds, per gim_roma call (24 launches at (2, 16, 2305, 64), 5 at
+// (2, 8, 2304, 128); chip_smoke.py computes both): the floor, the three
+// TF32 products of 4 G N^2 D FLOP at 495 TFLOP/s (about 7.6 ms; exps
+// and bytes are far below it), and the FP32-FMA figure, 4 G N^2 D FLOP
+// at 66.9 TFLOP/s (about 18.9 ms).
 
 #include <cuda_bf16.h>
 
@@ -406,125 +451,312 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ---------------------------------------------------------------------------
-// float32: plain FMA, S and P staged in shared memory
+// float32: K and V split once per call, 3xTF32 on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int BQ_F32 = 64;        // query rows per block
-constexpr int BK_F32 = 64;        // key rows per tile
-constexpr int THREADS_F32 = 256;
-constexpr int S_LD = BK_F32 + 1;
+constexpr int THREADS_F32 = 128;  // one warpgroup: 64 query rows
+constexpr int BQ_F32 = 64;
 
-// Rows [row0, row0 + 64) of one head (row stride rs) into shared memory
-// (row stride ld), zero-filling rows at or past N.
+// Split tiles of BK keys, in wgmma's K-major layout without swizzle: core
+// matrices of 8 rows x 4 words (128 contiguous bytes), CORE bytes apart
+// along K and SBO bytes apart from one 8-row group to the next. A tile is
+// K hi, K lo ([key][d], rows in S's key order) and V^T hi, V^T lo
+// ([d][key]), TILE floats in all, the same in the scratch buffer and in
+// each stage of the kernel's ring.
 template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
-                                              const float* src, long long rs,
-                                              int row0, int N) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS_F32) {
-    const int r = idx / D, c = idx - r * D;
-    dst[r * ld + c] = (row0 + r < N) ? src[(row0 + r) * rs + c] : 0.f;
+struct F32Tiles {
+  // keys per tile: 48 at D = 128, where the two stages (192 KB) leave one
+  // block an SM whatever the tile, and a wider S product runs closer to
+  // the tensor cores' rate (0.595 -> 0.570 ms at (2, 8, 2304, 128),
+  // f32_probe.py); at D = 64, 32 keys keep three blocks an SM
+  static constexpr int BK = D == 64 ? 32 : 48;
+  static constexpr int PART = BK * D;              // floats of one part
+  static constexpr int TILE = 4 * PART;
+  static constexpr int K_HI = 0, K_LO = PART, VT_HI = 2 * PART,
+                       VT_LO = 3 * PART;
+  static constexpr int SBO_K = D / 4 * CORE;       // K: rows are keys
+  static constexpr int SBO_V = BK / 4 * CORE;      // V^T: rows are d
+  static constexpr int LD = D + 4;                 // Q staging rows
+  static constexpr int STAGES = 2;
+  // Q is staged over stage 1 before tile 1 is loaded
+  static constexpr int FLOATS =
+      TILE + (TILE > BQ_F32 * LD ? TILE : BQ_F32 * LD);
+  static constexpr int BYTES = FLOATS * 4 + 8 * STAGES;
+  // Q's A fragments stay in registers, split once at D = 64 and at each
+  // use at D = 128 (where hi and lo would not fit beside O); S is summed
+  // in groups of SG k-steps, each group into a fresh accumulator
+  static constexpr bool Q_SPLIT = D == 64;
+  static constexpr int SG = 4;
+  static constexpr int BLOCKS = D == 64 ? 3 : 1;   // per SM
+};
+
+// S's key order within each group of 8: the n-th column of S is key
+// n / 2 + 4 (n % 2), so that a lane's columns 2 t, 2 t + 1 are keys t,
+// t + 4, which is where the A fragment of P V wants P: P V then takes P
+// from the S registers as they stand, with V in its own order. Key k sits
+// in row key_row(k) of the split K tile.
+__device__ __forceinline__ int key_row(int k) {
+  return (k & ~7) + 2 * (k % 4) + (k % 8) / 4;
+}
+
+// The split pass: one block per (tile of BK keys, head, K or V) writes the
+// tile's two parts, hi and lo, into the scratch buffer (tile j of head
+// b H + h at (b H + h) n_tiles + j). Keys at or past N are zeros.
+template <int D>
+__global__ void __launch_bounds__(THREADS_F32)
+flash_split_f32(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ scratch, Strides st, int H, int N) {
+  using T = F32Tiles<D>;
+  constexpr int V4 = D / 4;
+  const int j = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  char* tile = reinterpret_cast<char*>(
+      scratch + ((size_t)bh * gridDim.x + j) * T::TILE);
+  if (blockIdx.z == 0) {
+    // consecutive threads take consecutive keys of one group of 4
+    // columns: every store is a core-matrix row
+    const float* kb = k + b * st.k[0] + h * st.k[1];
+    for (int i = threadIdx.x; i < T::BK * V4; i += THREADS_F32) {
+      const int r = i % T::BK, c = (i / T::BK) * 4, key = j * T::BK + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (key < N) x = *reinterpret_cast<const float4*>(kb + key * st.k[2] + c);
+      uint4 hi, lo;
+      split_tf32(x.x, hi.x, lo.x);
+      split_tf32(x.y, hi.y, lo.y);
+      split_tf32(x.z, hi.z, lo.z);
+      split_tf32(x.w, hi.w, lo.w);
+      const int off = kmajor(key_row(r), c, T::SBO_K);
+      *reinterpret_cast<uint4*>(tile + T::K_HI * 4 + off) = hi;
+      *reinterpret_cast<uint4*>(tile + T::K_LO * 4 + off) = lo;
+    }
+  } else {
+    // a lane takes one column d of 4 keys: V^T's core-matrix row
+    const float* vb = v + b * st.v[0] + h * st.v[1];
+    for (int i = threadIdx.x; i < T::BK * V4; i += THREADS_F32) {
+      const int d = i % D, k0 = (i / D) * 4;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * T::BK + k0 + e;
+        x[e] = key < N ? vb[key * st.v[2] + d] : 0.f;
+      }
+      uint4 hi, lo;
+      split_tf32(x[0], hi.x, lo.x);
+      split_tf32(x[1], hi.y, lo.y);
+      split_tf32(x[2], hi.z, lo.z);
+      split_tf32(x[3], hi.w, lo.w);
+      const int off = kmajor(d, k0, T::SBO_V);
+      *reinterpret_cast<uint4*>(tile + T::VT_HI * 4 + off) = hi;
+      *reinterpret_cast<uint4*>(tile + T::VT_LO * 4 + off) = lo;
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS_F32)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 Strides st, int H, int N, float scale) {
-  constexpr int QLD = D + 1;      // odd strides: column reads hit 32 banks
-  constexpr int DPT = D / 4;      // output columns per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + BQ_F32 * QLD;
-  float* vs = ks + BK_F32 * QLD;  // row stride D
-  float* ss = vs + BK_F32 * D;    // (BQ_F32, S_LD) scores, then p
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;       // S tile: 4 x 4 per thread
-  const int row = tid >> 2, part = tid & 3;     // softmax and O: row owner
+__global__ void __launch_bounds__(THREADS_F32, F32Tiles<D>::BLOCKS)
+flash_f32_kernel(const float* __restrict__ q,
+                 const float* __restrict__ scratch, float* __restrict__ o,
+                 Strides st, int H, int N, int n_tiles, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int BK = T::BK, LD = T::LD, NB = BK / 8, DT = D / 8;
+  constexpr int SG = T::SG;
+  extern __shared__ __align__(128) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * BQ_F32;
   const int b = blockIdx.y / H, h = blockIdx.y - b * H;
   const float* qb = q + b * st.q[0] + h * st.q[1];
-  const float* kb = k + b * st.k[0] + h * st.k[1];
-  const float* vb = v + b * st.v[0] + h * st.v[1];
+  const float* tiles = scratch + (size_t)blockIdx.y * n_tiles * T::TILE;
+  const uint32_t s_base = smem_u32(sm);
+  const uint32_t full = smem_u32(sm + T::FLOATS);
+  auto stage = [&](int s) { return s_base + s * T::TILE * 4; };
+  auto load = [&](int jt) {          // one thread: tile jt into its stage
+    const int s = jt % T::STAGES;
+    mbar_expect_tx(full + 8 * s, T::TILE * 4);
+    bulk_load(stage(s), tiles + (size_t)jt * T::TILE, T::TILE * 4,
+              full + 8 * s);
+  };
 
-  load_rows_f32<D>(qs, QLD, qb, st.q[2], q0, N);
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) mbar_init(full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q rows [q0, q0 + 64) over stage 1, as 16-byte cp.async (rows at or
+  // past N zero-filled)
+  float* qs = sm + T::TILE;
+  for (int i = tid; i < BQ_F32 * (D / 4); i += THREADS_F32) {
+    const int r = i / (D / 4), c = (i - r * (D / 4)) * 4;
+    const bool ok = q0 + r < N;
+    cp_async16(qs + r * LD + c, ok ? qb + (q0 + r) * st.q[2] + c : qb, ok);
+  }
+  cp_async_commit();
+  __syncthreads();                  // barriers initialised
+  if (tid == 0) load(0);
+  cp_async_wait<0>();
+  __syncthreads();
 
-  float m_run = NEG, l_run = 0.f;
-  float acc[DPT];
+  // this warp's 16 rows of Q as A fragments: hi and lo (D = 64), or the
+  // float32 bits, split where they are used (D = 128)
+  uint32_t qh[DT][4], ql[T::Q_SPLIT ? DT : 1][4];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-
-  for (int j0 = 0; j0 < N; j0 += BK_F32) {
-    __syncthreads();
-    load_rows_f32<D>(ks, QLD, kb, st.k[2], j0, N);
-    load_rows_f32<D>(vs, D, vb, st.v[2], j0, N);
-    __syncthreads();
-
-    float s[4][4];
+  for (int kk = 0; kk < DT; ++kk) {
+    ldmatrix_x4(qh[kk], qs + (16 * warp + lane % 8 + 8 * ((lane / 8) % 2))
+                                 * LD + 8 * kk + 4 * (lane / 16));
+    if constexpr (T::Q_SPLIT) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QLD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = ks[(tx + 16 * j) * QLD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        ss[(ty + 16 * i) * S_LD + col] = j0 + col < N ? s[i][j] * scale
-                                                      : NEG;
-      }
-    __syncthreads();
-
-    // online softmax of row `row`, four threads per row
-    float tmax = NEG;
-#pragma unroll
-    for (int kq = 0; kq < 16; ++kq)
-      tmax = fmaxf(tmax, ss[row * S_LD + part + 4 * kq]);
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m_run, tmax);
-    const float alpha = expf(m_run - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int kq = 0; kq < 16; ++kq) {
-      const int idx = row * S_LD + part + 4 * kq;
-      const float p = expf(ss[idx] - m_new);
-      ss[idx] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_run = l_run * alpha + psum;
-    m_run = m_new;
-    __syncwarp();  // the row's p values are written by this warp
-
-    // O[row][part + 4 i] = alpha O + sum_j p[row][j] V[j][part + 4 i]
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    for (int j = 0; j < BK_F32; ++j) {
-      const float p = ss[row * S_LD + j];
-#pragma unroll
-      for (int i = 0; i < DPT; ++i)
-        acc[i] = fmaf(p, vs[j * D + part + 4 * i], acc[i]);
+      for (int e = 0; e < 4; ++e) split_tf32(qh[kk][e], qh[kk][e], ql[kk][e]);
     }
   }
-  if (q0 + row < N) {
-    float* orow = o + b * st.o[0] + h * st.o[1] + (q0 + row) * st.o[2];
-    const float inv = 1.f / l_run;
+  __syncthreads();                  // stage 1 is free for tile 1
+  if (tid == 0 && n_tiles > 1) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    load(1);
+  }
+
+  const float sl2 = scale * LOG2E;  // scores in the log2 domain
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+  float acc[D / 2];                 // O: 64 x D over the warpgroup
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) orow[part + 4 * i] = acc[i] * inv;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % T::STAGES;
+    mbar_wait(full + 8 * s, (j / T::STAGES) & 1);
+    // Q's splits stay inside the loop: hoisted, those of all DT k-steps
+    // (128 registers at D = 128) spilled
+    fence_operands<DT>(qh);
+    const uint32_t k_hi = stage(s) + T::K_HI * 4, k_lo = stage(s) + T::K_LO * 4;
+    const uint32_t v_hi = stage(s) + T::VT_HI * 4,
+                   v_lo = stage(s) + T::VT_LO * 4;
+
+    // S = Q K^T (64 x BK): each group of SG k-steps sums into a fresh
+    // accumulator, added to s in float32 (the tensor core's own rounding
+    // of a running sum is not carried over all of D)
+    float s_[4 * NB];
+#pragma unroll
+    for (int i = 0; i < 4 * NB; ++i) s_[i] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < DT; k0 += SG) {
+      float sp[4 * NB];
+      uint32_t ah[SG][4], al[SG][4];
+#pragma unroll
+      for (int kk = 0; kk < SG; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (T::Q_SPLIT) {
+            ah[kk][e] = qh[k0 + kk][e];
+            al[kk][e] = ql[k0 + kk][e];
+          } else {
+            split_tf32(qh[k0 + kk][e], ah[kk][e], al[kk][e]);
+          }
+        }
+      fence_operands<4 * NB>(sp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SG; ++kk) {
+        const uint32_t off = (k0 + kk) * 2 * CORE;
+        wgmma_tf32<BK>(sp, al[kk], desc_plain(k_hi + off, CORE, T::SBO_K),
+                       kk > 0);
+        wgmma_tf32<BK>(sp, ah[kk], desc_plain(k_lo + off, CORE, T::SBO_K), 1);
+        wgmma_tf32<BK>(sp, ah[kk], desc_plain(k_hi + off, CORE, T::SBO_K), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands<4 * NB>(sp);
+#pragma unroll
+      for (int i = 0; i < 4 * NB; ++i) s_[i] += sp[i];
+    }
+
+    // online softmax in the log2 domain: the running max m holds scores
+    // times scale log2 e; key columns past N read -1e30 (the last tile).
+    // Register i of S is row g + 8 ((i >> 1) & 1) of the warp's 16, key
+    // 8 (i / 4) + t + 4 (i & 1) of the tile (key_row)
+    const bool tail = (j + 1) * BK > N;
+    float tmax[2] = {NEG, NEG};
+#pragma unroll
+    for (int i = 0; i < 4 * NB; ++i) {
+      if (tail && j * BK + 8 * (i / 4) + t + 4 * (i & 1) >= N) s_[i] = NEG;
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s_[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float m_new = fmaxf(m_run[r], tmax[r] * sl2);
+      alpha[r] = fast_exp2(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+    // P as A fragments of P V, split: key step kp is registers {0, 2, 1,
+    // 3} of S's n tile kp (key_row)
+    uint32_t ph[NB][4], pl[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#ifndef F32_PROBE_NO_EXP
+        p[e] = fast_exp2(fmaf(s_[4 * n + e], sl2, -m_run[e >> 1]));
+#else   // f32_probe.py's ablation: P = S without the MUFU's exp2
+        p[e] = fmaf(s_[4 * n + e], sl2, -m_run[e >> 1]);
+#endif
+        l_run[e >> 1] += p[e];
+      }
+      split_tf32(p[0], ph[n][0], pl[n][0]);
+      split_tf32(p[2], ph[n][1], pl[n][1]);
+      split_tf32(p[1], ph[n][2], pl[n][2]);
+      split_tf32(p[3], ph[n][3], pl[n][3]);
+    }
+
+    // O = alpha O + P V, 64 columns of D at a time: the tile's keys sum
+    // into a fresh accumulator, added to O in float32
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      float op[32];
+      const uint32_t voff = half * 8 * T::SBO_V;
+      fence_operands<32>(op);
+      wgmma_fence();
+#pragma unroll
+      for (int kp = 0; kp < NB; ++kp) {
+        const uint32_t off = voff + kp * 2 * CORE;
+        wgmma_tf32<64>(op, pl[kp], desc_plain(v_hi + off, CORE, T::SBO_V),
+                       kp > 0);
+        wgmma_tf32<64>(op, ph[kp], desc_plain(v_lo + off, CORE, T::SBO_V), 1);
+        wgmma_tf32<64>(op, ph[kp], desc_plain(v_hi + off, CORE, T::SBO_V), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands<32>(op);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[32 * half + i] =
+            fmaf(acc[32 * half + i], alpha[(i >> 1) & 1], op[i]);
+    }
+    __syncthreads();                // every product has read stage s ...
+    if (tid == 0 && j + T::STAGES < n_tiles) load(j + T::STAGES);  // refill
+  }
+
+  // full row sums across the four lanes of a row, then o = acc / l
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / l;
+  }
+  float* ob = o + b * st.o[0] + h * st.o[1];
+  const int r0 = q0 + 16 * warp + g;
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (r0 < N)
+      *reinterpret_cast<float2*>(ob + r0 * st.o[2] + col) =
+          make_float2(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+    if (r0 + 8 < N)
+      *reinterpret_cast<float2*>(ob + (r0 + 8) * st.o[2] + col) =
+          make_float2(acc[4 * n + 2] * inv[1], acc[4 * n + 3] * inv[1]);
   }
 }
 
@@ -584,8 +816,8 @@ bool make_map(CUtensorMap* map, MapPos* pos, const void* ptr,
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int H, int N, const Strides& st, float scale,
-           cudaStream_t stream) {
+           void* scratch, int B, int H, int N, const Strides& st,
+           float scale, cudaStream_t stream) {
   cudaError_t err;
   if (dtype == 0) {
     CUtensorMap mq, mk, mv;
@@ -601,15 +833,19 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
     flash_bf16_kernel<D><<<grid, THREADS_BF16, smem, stream>>>(
         mq, mk, mv, pq, pk, pv, (bf16*)o, st, H, N, scale);
   } else {
-    const size_t smem = ((size_t)(BQ_F32 + BK_F32) * (D + 1)
-                         + (size_t)BK_F32 * D + (size_t)BQ_F32 * S_LD)
-                        * sizeof(float);
-    err = prepare(flash_f32_kernel<D>, smem);
+    using T = F32Tiles<D>;
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int n_tiles = (N + T::BK - 1) / T::BK;
+    flash_split_f32<D><<<dim3(n_tiles, B * H, 2), THREADS_F32, 0, stream>>>(
+        (const float*)k, (const float*)v, (float*)scratch, st, H, N);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = prepare(flash_f32_kernel<D>, T::BYTES);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((N + BQ_F32 - 1) / BQ_F32, B * H);
-    flash_f32_kernel<D><<<grid, THREADS_F32, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, st, H,
-        N, scale);
+    flash_f32_kernel<D><<<grid, THREADS_F32, T::BYTES, stream>>>(
+        (const float*)q, (const float*)scratch, (float*)o, st, H, N, n_tiles,
+        scale);
   }
   return (int)cudaGetLastError();
 }
@@ -619,15 +855,25 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // Plain C interface, loaded with ctypes. dtype: 0 = bf16, 1 = float32.
 // q, k, v: (B, H, N, D) views, D in {64, 128}, unit stride along D;
 // `strides` holds 12 element strides, (B, H, N) for q, k, v and o in that
-// order. bf16 operands are read by TMA: bases and strides must be
-// multiples of 16 bytes (the wrapper checks). Returns cudaGetLastError()
-// after the launch (0 = launched); what it does not take returns
-// cudaErrorInvalidValue without launching.
+// order. Operands are read by TMA (bf16) or 16-byte copies (float32):
+// bases and strides must be multiples of 16 bytes (the wrapper checks).
+// float32 takes `scratch` of flash_scratch_bytes(...) bytes, 16-byte
+// aligned, for the split K and V; bf16 takes none. Returns
+// cudaGetLastError() after the launches (0 = launched); what it does not
+// take returns cudaErrorInvalidValue without launching.
+
+extern "C" long long flash_scratch_bytes(int dtype, int B, int H, int N,
+                                         int D) {
+  if (dtype == 0 || B < 1 || H < 1 || N < 1) return 0;
+  const int bk = D == 64 ? F32Tiles<64>::BK : F32Tiles<128>::BK;
+  const long long tiles = (long long)B * H * ((N + bk - 1) / bk);
+  return tiles * 4 * bk * D * 4;
+}
 
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* o, int B, int H, int N,
-                               int D, const long long* strides, float scale,
-                               void* stream) {
+                               const void* v, void* o, void* scratch, int B,
+                               int H, int N, int D, const long long* strides,
+                               float scale, void* stream) {
   if (B < 1 || H < 1 || N < 1 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   Strides st;
@@ -638,7 +884,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     st.o[i] = strides[9 + i];
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(dtype, q, k, v, o, B, H, N, st, scale, s);
-  if (D == 128) return launch<128>(dtype, q, k, v, o, B, H, N, st, scale, s);
+  if (D == 64)
+    return launch<64>(dtype, q, k, v, o, scratch, B, H, N, st, scale, s);
+  if (D == 128)
+    return launch<128>(dtype, q, k, v, o, scratch, B, H, N, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }

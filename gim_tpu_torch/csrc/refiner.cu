@@ -46,12 +46,57 @@
 // What holds it back now (per-shape ratios in PERF.md): the depthwise
 // side issues ~40 instructions per output (25 FMAs, window loads and
 // unpacking, the taps), on 8 warps; the 1x1 on mma.sync is next.
-// float32 inputs take a plain FMA kernel (tiles of 8 x 16, synchronous
-// halo loads) in full float32, for checks on the card.
+//
+// float32 design (the dense heads' default dtype). The same roles carry
+// float32 data: 8 depthwise warps and one 1x1 warpgroup (384 threads),
+// chunks of 16 channels, tiles of TH x 32 pixels (TH = 8 for C_out <= 48,
+// else 4).
+//   - Halo: one thread issues each chunk's window as one TMA box (40
+//     columns x TH + 4 rows x 16 channels of x seen as (W, H, C, B); the
+//     hardware's zero fill outside the image and past C is SAME padding)
+//     into a ring of up to 4 stages, each tracked by a full and an empty
+//     mbarrier, so a depthwise warp waits only for its own chunk. Where
+//     W % 4 != 0 or x is not 16-byte aligned, element loads fill the same
+//     ring behind a barrier of the depthwise warps. (16-byte cp.async
+//     issued by every thread kept the depthwise warps busy issuing.)
+//   - The depthwise stays in FP32 FMAs: a lane holds 2 columns x 4 rows
+//     of one channel (a half-warp a channel), reads window rows as float2
+//     and its channel's folded taps and bias, staged in shared memory once
+//     per block, as 16-byte vectors.
+//   - The 1x1 runs on the tensor cores as 3xTF32, wgmma.m64nNk8 .tf32
+//     with N = C_out padded to 8 and float32 accumulators: each operand
+//     splits into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
+//     with ties away from zero, and the product sums lo.hi + hi.lo +
+//     hi.hi (hopper.cuh). One TF32 product keeps about 3 digits (1.1-1.5e-3
+//     against float64 for C = 24-192, over the float32 tolerance of 1e-4);
+//     3xTF32 stays within float32's own rounding (tests/test_torch_
+//     refiner.py emulates both). A register-blocked SIMT 1x1 could not go
+//     below the FP32 bound, which the 1x1 alone sets at C = 144 (20736 of
+//     a pixel's 24336 FMAs); 3xTF32 on the tensor cores can. A is h, from
+//     registers (word loads at a pitch of 8 mod 32, split once per
+//     k-step), the warpgroup's MT m64 tiles of the tile's pixels.
+//   - Shared memory: hi and lo copies of the whole of w1 would not fit
+//     beside the rings at C = C_out = 192 (295 KB). So a split pass (one
+//     small kernel a call) writes w1's hi and lo parts chunk by chunk, in
+//     wgmma's K-major layout, to a scratch buffer, and each stage of the h
+//     ring carries its chunk's parts beside h (one bulk copy, NT KB,
+//     issued with the chunk and read from L2).
+//   - The epilogue adds b1 and stores straight from the accumulators: 8
+//     consecutive pixels of 4 channels a store, whole 32-byte sectors
+//     where W % 8 == 0.
+//   Bounds, per gim_dkm dense call at 672 (32 launches; chip_smoke.py
+//   computes both from each run's shapes): the design's floor, bytes at
+//   3.35 TB/s or the depthwise's FP32 FMAs at 66.9 TFLOP/s plus the 1x1's
+//   three TF32 products at 495 TFLOP/s, whichever is larger (5.53 ms);
+//   and the FP32-FMA figure, every FLOP at 66.9 TFLOP/s (8.995 ms).
+//   What holds it back (PERF.md; f32_probe.py's ablations): the skeleton.
+//   Without the 1x1's products and the depthwise FMAs a gim_dkm call
+//   takes 10.596 of 12.018 ms: the TMA halo boxes, w1's parts read from
+//   L2, the rings' barriers and the stores, not the arithmetic.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -59,7 +104,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int KS = 5;                 // depthwise kernel size
 constexpr int R = KS / 2;
-constexpr int CC = 16;                // channels per halo chunk (f32)
 constexpr int MAXC = 192;             // widest C and C_out taken
 
 __host__ __device__ constexpr int round_up(int n, int m) {
@@ -140,66 +184,6 @@ struct Rings {
     return bf16_layout(C, NT, G::STAGE, G::H_LD, STAGES, HS);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Block until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -522,96 +506,423 @@ refiner_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wdw,
 }
 
 // ---------------------------------------------------------------------------
-// float32: plain FMA, tiles of 8 x 16 pixels, synchronous halo loads
+// float32: persistent warp-specialised blocks, TMA halo ring, the 1x1 in
+// 3xTF32 on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int TH32 = 8, TW32 = 16;
-constexpr int P32 = TH32 * TW32;
-constexpr int HH32 = TH32 + KS - 1, HW32 = TW32 + KS - 1;
-constexpr int THREADS32 = 256;        // CC x TW32: one channel, one column
+constexpr int THREADS_F32 = 384;      // 8 depthwise warps, 1x1 warpgroup
+constexpr int DW_F32 = 256;           // depthwise threads (warpgroups 0, 1)
+constexpr int MMA_WARPS_F32 = (THREADS_F32 - DW_F32) / 32;
+constexpr int CCH_F32 = 16;           // channels per chunk: one per half-warp
+constexpr int WIN_X_F32 = 4;          // window column 0 is image column x0 - 4
+constexpr int WIN_VEC_F32 = (TW + 2 * WIN_X_F32) / 4;   // 10 vectors of 4
+constexpr int WIN_LD_F32 = 4 * WIN_VEC_F32;             // window row pitch
+constexpr int W1_SBO = CCH_F32 / 4 * CORE;   // w1 parts: 16 columns a row
+constexpr int TAP_LD = 28;            // a channel's 25 taps, its bias, pad
 
-// h (round16(C) x P32) then one halo chunk (CC x HH32 x HW32), floats
-__host__ __device__ inline size_t f32_smem(int C) {
-  return ((size_t)round_up(C, CC) * P32 + (size_t)CC * HH32 * HW32)
-         * sizeof(float);
+// Tile geometry for TH output rows (4 or 8) of TW columns: MT m64 tiles
+// of pixels for the 1x1 warpgroup (2 or 4).
+template <int TH>
+struct GeoF {
+  static constexpr int TP = TH * TW;              // pixels per tile
+  static constexpr int MT = TP / 64;
+  static constexpr int WIN_H = TH + KS - 1;       // window rows
+  static constexpr int WIN_CH = WIN_H * WIN_LD_F32;
+  static constexpr int STAGE = CCH_F32 * WIN_CH;  // floats per halo stage
+  static constexpr int H_LD = TP + 8;   // A loads (channel t, pixel g): 8 t + g
+};
+
+// One chunk of w1 split into TF32 hi and lo parts, each NT * 8 rows (c_out)
+// x 16 columns (c) K-major without swizzle: what the split pass writes per
+// chunk and what each stage of the h ring carries beside its h.
+template <int NT>
+__host__ __device__ constexpr int w1_part() { return NT * 8 * CCH_F32; }
+
+struct F32Layout {
+  size_t taps, halo, h, bars, bytes;
+};
+
+// Shared memory of the float32 kernel: b1, the folded taps and bias of
+// every channel (rows of TAP_LD, read as 16-byte vectors), the halo ring
+// of `stages` chunks (128-byte aligned TMA boxes), the h ring of `hs`
+// chunks (h in rows of h_ld, then the chunk's w1 parts) and the barriers
+// (halo full, halo empty, h full, w1 full, h empty).
+__host__ __device__ constexpr F32Layout f32_layout(int nt, int stage_elems,
+                                                   int h_stage, int stages,
+                                                   int hs) {
+  F32Layout L{};
+  L.taps = round_up(nt * 8 * 4, 16);
+  L.halo = round_up((int)L.taps + MAXC * TAP_LD * 4, 128);
+  L.h = L.halo + (size_t)stages * stage_elems * 4;
+  L.bars = L.h + (size_t)hs * h_stage * 4;
+  L.bytes = L.bars + 8 * (2 * stages + 3 * hs);
+  return L;
 }
 
-__global__ void __launch_bounds__(THREADS32)
-refiner_f32_kernel(const float* __restrict__ x, const float* __restrict__ wdw,
-                   const float* __restrict__ bdw,
-                   const float* __restrict__ w1, const float* __restrict__ b1,
-                   float* __restrict__ out, int C, int C_out, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int kpad = round_up(C, CC);
-  float* h_s = reinterpret_cast<float*>(smem_raw);
-  float* halo = h_s + (size_t)kpad * P32;
+template <int NT, int TH>
+constexpr F32Layout f32_rings(int stages, int hs) {
+  using G = GeoF<TH>;
+  return f32_layout(NT, G::STAGE, CCH_F32 * G::H_LD + 2 * w1_part<NT>(),
+                    stages, hs);
+}
 
-  const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * TW32, y0 = blockIdx.y * TH32, b = blockIdx.z;
-  const float* xb = x + (size_t)b * C * H * W;
-  const int cl = tid / TW32, tx = tid % TW32;
-  for (int c0 = 0; c0 < kpad; c0 += CC) {
-    __syncthreads();                   // previous chunk's readers are done
-    for (int idx = tid; idx < CC * HH32 * HW32; idx += THREADS32) {
-      const int ch = idx / (HH32 * HW32), rem = idx - ch * (HH32 * HW32);
-      const int hr = rem / HW32, hc = rem - hr * HW32;
-      const int c = c0 + ch, gy = y0 - R + hr, gx = x0 - R + hc;
-      halo[idx] = (c < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-                      ? xb[((size_t)c * H + gy) * W + gx]
-                      : 0.f;
+// Ring depths (chunks): the deepest halo ring, then h ring, that fit.
+template <int NT, int TH>
+struct RingsF {
+  static constexpr int STAGES = f32_rings<NT, TH>(4, 2).bytes <= SMEM_MAX ? 4
+                                : f32_rings<NT, TH>(3, 2).bytes <= SMEM_MAX
+                                    ? 3
+                                    : 2;
+  static constexpr int HS = f32_rings<NT, TH>(STAGES, 4).bytes <= SMEM_MAX ? 4
+                            : f32_rings<NT, TH>(STAGES, 3).bytes <= SMEM_MAX
+                                ? 3
+                                : 2;
+  static constexpr F32Layout L = f32_rings<NT, TH>(STAGES, HS);
+  static_assert(L.bytes <= SMEM_MAX, "shared memory");
+  static constexpr int H_STAGE =
+      CCH_F32 * GeoF<TH>::H_LD + 2 * w1_part<NT>();
+};
+
+// The split pass of w1: block kc writes chunk kc's hi and lo parts (zeros
+// past C_out and C) into the scratch buffer.
+template <int NT>
+__global__ void __launch_bounds__(128)
+refiner_split_w1(const float* __restrict__ w1, float* __restrict__ w1s,
+                 int C, int C_out) {
+  constexpr int PART = w1_part<NT>();
+  char* chunk = reinterpret_cast<char*>(w1s + (size_t)blockIdx.x * 2 * PART);
+  for (int i = threadIdx.x; i < PART; i += blockDim.x) {
+    const int co = i / CCH_F32, cl = i % CCH_F32;
+    const int c = blockIdx.x * CCH_F32 + cl;
+    uint32_t hi, lo;
+    split_tf32(co < C_out && c < C ? w1[co * C + c] : 0.f, hi, lo);
+    const int off = kmajor(co, cl, W1_SBO);
+    *reinterpret_cast<uint32_t*>(chunk + off) = hi;
+    *reinterpret_cast<uint32_t*>(chunk + PART * 4 + off) = lo;
+  }
+}
+
+// The window of channels [c0, c0 + CCH_F32) of tile `tl`: TH + 4 rows x
+// 40 columns (image columns x0 - 4 .. x0 + 35, the 16-byte aligned
+// superset of what the taps read), rows and columns outside the image
+// and channels past C as zeros. With `vec` (W % 4 == 0, 16-byte aligned
+// x) one TMA box (issued by one thread, tracked by the stage's full
+// barrier), else element loads by the depthwise threads into the same
+// ring (channels past C are then not loaded and not read).
+template <int TH>
+__device__ __forceinline__ void load_window_f32(float* dst,
+                                                const CUtensorMap* map,
+                                                uint32_t full,
+                                                const float* __restrict__ x,
+                                                Tile tl, int c0, int C, int H,
+                                                int W, bool vec) {
+  using G = GeoF<TH>;
+  if (vec) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full, G::STAGE * 4);
+      tma_load_4d(smem_u32(dst), map, full, tl.x0 - WIN_X_F32, tl.y0 - R,
+                  c0, tl.b);
     }
-    __syncthreads();
-    const int c = c0 + cl;
-    float acc[TH32];
+    return;
+  }
+  constexpr int SLOTS = G::WIN_H * WIN_VEC_F32, GROUPS = DW_F32 / SLOTS;
+  const int t = threadIdx.x;
+  if (t >= SLOTS * GROUPS) return;
+  const int slot = t % SLOTS, grp = t / SLOTS;
+  const int v = slot % WIN_VEC_F32, rr = slot / WIN_VEC_F32;
+  const int y = tl.y0 - R + rr, xc = tl.x0 - WIN_X_F32 + 4 * v;
+  const bool row_ok = y >= 0 && y < H;
+  const int n_ch = min(CCH_F32, C - c0);
+  const size_t plane = (size_t)H * W;
+  const float* src = x + ((size_t)tl.b * C + c0 + grp) * plane
+                     + (size_t)(row_ok ? y : 0) * W;
+  float* d = dst + grp * G::WIN_CH + rr * WIN_LD_F32 + 4 * v;
+  for (int ch = grp; ch < n_ch; ch += GROUPS) {
 #pragma unroll
-    for (int r = 0; r < TH32; ++r) acc[r] = 0.f;
-    if (c < C) {
-      float w[KS * KS];
+    for (int e = 0; e < 4; ++e) {
+      const int xe = xc + e;
+      d[e] = (row_ok && xe >= 0 && xe < W) ? src[xe] : 0.f;
+    }
+    src += GROUPS * plane;
+    d += GROUPS * G::WIN_CH;
+  }
+}
+
+// Depthwise 5x5 + bias + ReLU of TH rows of one channel, in blocks of 4
+// rows: the lane holds columns 2 cp, 2 cp + 1 and slides down the 8
+// window rows a block needs, read as float2 (win points at the channel's
+// window; taps at its row of folded taps and bias). Writes h rows of TW
+// pixels; zeros for a channel past C.
+template <int TH>
+__device__ __forceinline__ void depthwise_f32(const float* win,
+                                              const float* taps, bool live,
+                                              float* h) {
+  constexpr int RB = 4, WIN_H = RB + KS - 1;
+  const int cp = threadIdx.x % 16;
+  float w[TAP_LD];                      // 25 taps, then the bias
+  if (live) {
 #pragma unroll
-      for (int i = 0; i < KS * KS; ++i) w[i] = wdw[c * KS * KS + i];
-      const float* hp = halo + cl * HH32 * HW32 + tx;
+    for (int i = 0; i < TAP_LD / 4; ++i) {
+      const float4 v4 = reinterpret_cast<const float4*>(taps)[i];
+      w[4 * i] = v4.x;
+      w[4 * i + 1] = v4.y;
+      w[4 * i + 2] = v4.z;
+      w[4 * i + 3] = v4.w;
+    }
+  }
+  const float bias = w[KS * KS];
 #pragma unroll
-      for (int hr = 0; hr < HH32; ++hr) {
-        float v[KS];
+  for (int rb = 0; rb < TH / RB; ++rb) {
+    float a0[RB] = {0.f, 0.f, 0.f, 0.f}, a1[RB] = {0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      // window column of image column x0 + 2 cp - 2
+      const float* p = win + RB * rb * WIN_LD_F32 + WIN_X_F32 - R + 2 * cp;
 #pragma unroll
-        for (int bb = 0; bb < KS; ++bb) v[bb] = hp[hr * HW32 + bb];
+      for (int i = 0; i < WIN_H; ++i) {
+        const float2* q = reinterpret_cast<const float2*>(p + i * WIN_LD_F32);
+        const float2 u0 = q[0], u1 = q[1], u2 = q[2];
+        const float v[6] = {u0.x, u0.y, u1.x, u1.y, u2.x, u2.y};
 #pragma unroll
-        for (int r = 0; r < TH32; ++r) {
-          const int a = hr - r;        // tap row of this halo row for row r
+        for (int r = 0; r < RB; ++r) {
+          const int a = i - r;          // tap row of window row i for row r
           if (a >= 0 && a < KS) {
 #pragma unroll
-            for (int bb = 0; bb < KS; ++bb)
-              acc[r] = fmaf(w[a * KS + bb], v[bb], acc[r]);
+            for (int bb = 0; bb < KS; ++bb) {
+              a0[r] = fmaf(w[a * KS + bb], v[bb], a0[r]);
+              a1[r] = fmaf(w[a * KS + bb], v[bb + 1], a1[r]);
+            }
           }
         }
       }
-      const float bias = bdw[c];
 #pragma unroll
-      for (int r = 0; r < TH32; ++r) acc[r] = fmaxf(acc[r] + bias, 0.f);
+      for (int r = 0; r < RB; ++r) {
+        a0[r] = fmaxf(a0[r] + bias, 0.f);
+        a1[r] = fmaxf(a1[r] + bias, 0.f);
+      }
     }
 #pragma unroll
-    for (int r = 0; r < TH32; ++r) h_s[c * P32 + r * TW32 + tx] = acc[r];
-  }
-  __syncthreads();
-
-  // out[co][p] = b1[co] + sum_c w1[co][c] h[c][p]: a thread owns pixel p
-  // and every other output channel; w1 reads are warp-uniform (broadcast)
-  const int p = tid % P32;
-  const int gy = y0 + p / TW32, gx = x0 + p % TW32;
-  if (gy >= H || gx >= W) return;
-  for (int co = tid / P32; co < C_out; co += THREADS32 / P32) {
-    const float* wr = w1 + (size_t)co * C;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = fmaf(__ldg(wr + c), h_s[c * P32 + p], acc);
-    out[(((size_t)b * C_out + co) * H + gy) * W + gx] = acc + b1[co];
+    for (int r = 0; r < RB; ++r)
+      *reinterpret_cast<float2*>(h + (RB * rb + r) * TW + 2 * cp) =
+          make_float2(a0[r], a1[r]);
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// acc (MT m64 tiles of pixels x NT * 8 output channels) += h^T w1^T for
+// one chunk in 3xTF32: A from h [channel][pixel] (word loads at a pitch of
+// 8 mod 32, no bank conflicts; split once), B the chunk's w1 parts. Warp w
+// holds rows 16 w .. 16 w + 15 of each m64 tile. One commit group, waited
+// for before the chunk's h is released.
+template <int NT, int TH>
+__device__ __forceinline__ void pointwise_f32(float (*acc)[NT * 4],
+                                              const float* h,
+                                              uint32_t w_hi) {
+  using G = GeoF<TH>;
+  constexpr int MT = G::MT, KSTEPS = CCH_F32 / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int w = (threadIdx.x / 32) % 4;
+  const uint32_t w_lo = w_hi + w1_part<NT>() * 4;
+  uint32_t ahi[KSTEPS][MT][4], alo[KSTEPS][MT][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float* hp = h + (8 * kk + t) * G::H_LD + 64 * m + 16 * w + g;
+      split_tf32(hp[0], ahi[kk][m][0], alo[kk][m][0]);
+      split_tf32(hp[8], ahi[kk][m][1], alo[kk][m][1]);
+      split_tf32(hp[4 * G::H_LD], ahi[kk][m][2], alo[kk][m][2]);
+      split_tf32(hp[4 * G::H_LD + 8], ahi[kk][m][3], alo[kk][m][3]);
+    }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) fence_operands<NT * 4>(acc[m]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint64_t bh = desc_plain(w_hi + kk * 2 * CORE, CORE, W1_SBO);
+    const uint64_t bl = desc_plain(w_lo + kk * 2 * CORE, CORE, W1_SBO);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#ifndef F32_PROBE_NO_1X1
+      wgmma_tf32<NT * 8>(acc[m], alo[kk][m], bh, 1);
+      wgmma_tf32<NT * 8>(acc[m], ahi[kk][m], bl, 1);
+      wgmma_tf32<NT * 8>(acc[m], ahi[kk][m], bh, 1);
+#else   // f32_probe.py's ablation: the operands stay live, no products
+      acc[m][0] += __uint_as_float(ahi[kk][m][0] ^ alo[kk][m][1]);
+#endif
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) fence_operands<NT * 4>(acc[m]);
+}
+
+// out = acc + b1 for 16 pixels (p0 .. p0 + 15 of the tile, one tile row),
+// straight from the fragments: each store instruction writes 8
+// consecutive pixels of 4 output channels, whole 32-byte sectors where
+// W % 8 == 0. (Staging 16 channels through shared memory for 16-byte
+// stores measured slower on the H100: the 1x1 warps stall on the bursts.)
+// Resets acc.
+template <int NT>
+__device__ __forceinline__ void store_f32(float* acc, const float* b1_s,
+                                          float* __restrict__ out, Tile tl,
+                                          int p0, int C_out, int H, int W) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int y = tl.y0 + p0 / TW, xg = tl.x0 + p0 % TW + g;
+  if (y < H) {
+    const size_t plane = (size_t)H * W;
+    float* ob = out + (size_t)tl.b * C_out * plane + (size_t)y * W;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = 8 * n + 2 * t + (e & 1), xx = xg + 8 * (e >> 1);
+        if (co < C_out && xx < W)
+          ob[(size_t)co * plane + xx] = acc[4 * n + e] + b1_s[co];
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < NT * 4; ++i) acc[i] = 0.f;
+}
+
+template <int NT, int TH>
+__global__ void __launch_bounds__(THREADS_F32, 1)
+refiner_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const float* __restrict__ x, const float* __restrict__ wdw,
+                   const float* __restrict__ bdw,
+                   const float* __restrict__ w1s, const float* __restrict__ b1,
+                   float* __restrict__ out, int C, int C_out, int H, int W,
+                   int tiles_x, int tiles_y, int n_tiles, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using G = GeoF<TH>;
+  using RG = RingsF<NT, TH>;
+  constexpr int STAGES = RG::STAGES, HS = RG::HS;
+  constexpr F32Layout L = RG::L;
+  constexpr int W_BYTES = 2 * w1_part<NT>() * 4;
+  float* b1_s = reinterpret_cast<float*>(smem);
+  float* taps_s = reinterpret_cast<float*>(smem + L.taps);
+  float* halo = reinterpret_cast<float*>(smem + L.halo);
+  float* h_s = reinterpret_cast<float*>(smem + L.h);
+  const uint32_t bars = smem_u32(smem + L.bars);
+  auto halo_full = [&](int s) { return bars + 8u * s; };
+  auto halo_empty = [&](int s) { return bars + 8u * (STAGES + s); };
+  auto h_full = [&](int s) { return bars + 8u * (2 * STAGES + s); };
+  auto w_full = [&](int s) { return bars + 8u * (2 * STAGES + HS + s); };
+  auto h_empty = [&](int s) {
+    return bars + 8u * (2 * STAGES + 2 * HS + s);
+  };
+  auto h_of = [&](int s) { return h_s + s * RG::H_STAGE; };
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < NT * 8; i += THREADS_F32)
+    b1_s[i] = i < C_out ? b1[i] : 0.f;
+  for (int i = tid; i < C * TAP_LD; i += THREADS_F32) {
+    const int c = i / TAP_LD, k = i - c * TAP_LD;
+    taps_s[i] = k < KS * KS ? wdw[c * KS * KS + k] : k == KS * KS ? bdw[c]
+                                                                  : 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(halo_full(s), 1);
+      mbar_init(halo_empty(s), DW_F32 / 32);
+    }
+    for (int s = 0; s < HS; ++s) {
+      mbar_init(h_full(s), DW_F32 / 32);        // one arrival per warp
+      mbar_init(w_full(s), 1);
+      mbar_init(h_empty(s), MMA_WARPS_F32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // chunk g of this block: tile blockIdx.x + (g / nck) gridDim.x,
+  // channels (g % nck) * CCH_F32 ...
+  const int nck = (C + CCH_F32 - 1) / CCH_F32;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1)
+                       / (int)gridDim.x;
+  const int total = my_tiles * nck;
+  auto tile_of = [&](int g) {
+    return tile_at<TH>(blockIdx.x + (g / nck) * gridDim.x, tiles_x,
+                       tiles_y);
+  };
+
+  if (tid < DW_F32) {
+    // ---- depthwise warps: loads, depthwise, h; thread 0 also issues the
+    // halo boxes and each chunk's w1 parts ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n");
+    const int ch = tid / 16;          // the half-warp's channel of a chunk
+    auto issue = [&](int g) {
+      if (g < total)
+        load_window_f32<TH>(halo + (g % STAGES) * G::STAGE, &xmap,
+                            halo_full(g % STAGES), x, tile_of(g),
+                            (g % nck) * CCH_F32, C, H, W, vec != 0);
+    };
+    // every stage's first box (TMA), or all but the last (element loads,
+    // whose last stage is filled in the first turn)
+    for (int s = 0; s < STAGES - (vec ? 0 : 1); ++s) issue(s);
+    for (int g = 0; g < total; ++g) {
+      if (vec) {
+        // thread 0 refills chunk g - 1's stage once every warp is done
+        // with it; each warp waits only for its own chunk's box
+        if (tid == 0 && g >= 1 && g + STAGES - 1 < total) {
+          mbar_wait(halo_empty((g - 1) % STAGES), ((g - 1) / STAGES) & 1);
+          issue(g + STAGES - 1);
+        }
+        mbar_wait(halo_full(g % STAGES), (g / STAGES) & 1);
+      } else {
+        // chunk g's elements were written before this barrier, and every
+        // depthwise thread is done with chunk g - 1's stage
+        asm volatile("bar.sync 1, %0;\n" ::"n"(DW_F32) : "memory");
+        issue(g + STAGES - 1);
+      }
+      const int hs = g % HS;
+      if (g >= HS) mbar_wait(h_empty(hs), ((g / HS) - 1) & 1);
+      float* h = h_of(hs);
+      if (tid == 0) {
+        mbar_expect_tx(w_full(hs), W_BYTES);
+        bulk_load(smem_u32(h + CCH_F32 * G::H_LD),
+                  w1s + (size_t)(g % nck) * 2 * w1_part<NT>(), W_BYTES,
+                  w_full(hs));
+      }
+      const int c = (g % nck) * CCH_F32 + ch;
+#ifndef F32_PROBE_NO_DEPTHWISE
+      const bool live = c < C;
+#else   // f32_probe.py's ablation: every channel dead, no FMAs
+      const bool live = false;
+#endif
+      depthwise_f32<TH>(halo + (g % STAGES) * G::STAGE + ch * G::WIN_CH,
+                        taps_s + (live ? c : 0) * TAP_LD, live,
+                        h + ch * G::H_LD);
+      __syncwarp();                     // the warp's h writes, then lane 0
+      if (tid % 32 == 0) {
+        mbar_arrive(h_full(hs));
+        if (vec) mbar_arrive(halo_empty(g % STAGES));
+      }
+    }
+  } else {
+    // ---- the 1x1 warpgroup: products, epilogue ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int w = (tid - DW_F32) / 32;
+    float acc[G::MT][NT * 4];
+#pragma unroll
+    for (int m = 0; m < G::MT; ++m)
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) acc[m][i] = 0.f;
+    for (int g = 0; g < total; ++g) {
+      const int hs = g % HS;
+      mbar_wait(h_full(hs), (g / HS) & 1);
+      mbar_wait(w_full(hs), (g / HS) & 1);
+      const float* h = h_of(hs);
+      pointwise_f32<NT, TH>(acc, h, smem_u32(h + CCH_F32 * G::H_LD));
+      __syncwarp();
+      if (tid % 32 == 0) mbar_arrive(h_empty(hs));
+      if (g % nck == nck - 1) {
+        const Tile tl = tile_of(g);
+#pragma unroll
+        for (int m = 0; m < G::MT; ++m)
+          store_f32<NT>(acc[m], b1_s, out, tl, 64 * m + 16 * w, C_out, H, W);
+      }
+    }
+  }
 }
 
 template <int NT, int TH>
@@ -639,44 +950,117 @@ int launch_bf16(const void* x, const void* wdw, const void* bdw,
   return (int)cudaGetLastError();
 }
 
+template <int NT, int TH>
+int launch_f32(const void* x, const void* wdw, const void* bdw,
+               const void* w1, const void* b1, void* out, void* scratch,
+               int B, int C, int C_out, int H, int W, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (scratch == nullptr || (uintptr_t)scratch % 16)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const long long n_tiles = (long long)B * tiles_x * tiles_y;
+  if (n_tiles > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
+  const int vec = (W % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  // x as a 4-D tensor (W, H, C, B) for TMA: one box is a chunk's window,
+  // zero-filled outside the image and past C
+  CUtensorMap xmap{};
+  if (vec) {
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorInvalidValue;
+    const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)C,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)W * 4,
+                                   (cuuint64_t)H * W * 4,
+                                   (cuuint64_t)C * H * W * 4};
+    const cuuint32_t box[4] = {WIN_LD_F32, GeoF<TH>::WIN_H, CCH_F32, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+               const_cast<void*>(x), dims, strides, box, estr,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  const int nck = (C + CCH_F32 - 1) / CCH_F32;
+  refiner_split_w1<NT><<<nck, 128, 0, st>>>((const float*)w1,
+                                            (float*)scratch, C, C_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = RingsF<NT, TH>::L.bytes;
+  err = prepare(refiner_f32_kernel<NT, TH>, smem);
+  if (err != cudaSuccess) return (int)err;
+  refiner_f32_kernel<NT, TH><<<grid, THREADS_F32, smem, st>>>(
+      xmap, (const float*)x, (const float*)wdw, (const float*)bdw,
+      (const float*)scratch, (const float*)b1, (float*)out, C, C_out, H, W,
+      tiles_x, tiles_y, (int)n_tiles, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = bf16, 1 = float32.
 // x (B, C, H, W), wdw (C, 25), bdw (C,), w1 (C_out, C), b1 (C_out,) and
 // out (B, C_out, H, W) are contiguous and of one dtype; C, C_out <= 192;
-// any H, W >= 1. Returns cudaGetLastError() after the launch (0 =
-// launched); shapes it does not take return cudaErrorInvalidValue without
-// launching.
+// any H, W >= 1. float32 takes `scratch` of refiner_scratch_bytes(...)
+// bytes, 16-byte aligned, for w1 split into TF32 parts; bf16 takes none.
+// Returns cudaGetLastError() after the launches (0 = launched); shapes it
+// does not take return cudaErrorInvalidValue without launching.
+
+namespace {
+// C_out in n-tiles of 8, rounded up to the instantiated widths
+int nt_bucket(int C_out) {
+  const int nt = (C_out + 7) / 8;
+  return nt <= 3 ? 3 : nt <= 6 ? 6 : nt <= 12 ? 12 : nt <= 18 ? 18 : 24;
+}
+}  // namespace
 
 extern "C" int refiner_max_channels() { return MAXC; }
 
+extern "C" long long refiner_scratch_bytes(int dtype, int C, int C_out) {
+  if (dtype == 0 || C < 1 || C_out < 1) return 0;
+  const long long nck = (C + CCH_F32 - 1) / CCH_F32;
+  return nck * 2 * nt_bucket(C_out) * 8 * CCH_F32 * 4;
+}
+
 extern "C" int refiner_block(int dtype, const void* x, const void* wdw,
                              const void* bdw, const void* w1, const void* b1,
-                             void* out, int B, int C, int C_out, int H, int W,
-                             void* stream) {
+                             void* out, void* scratch, int B, int C,
+                             int C_out, int H, int W, void* stream) {
   if (C < 1 || C > MAXC || C_out < 1 || C_out > MAXC || B < 1 || B > 65535
       || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    // C_out in n-tiles of 8, rounded up to the instantiated widths
-    const int nt = (C_out + 7) / 8;
-    if (nt <= 3)
+  switch (nt_bucket(C_out) + 100 * dtype) {
+    case 3:
       return launch_bf16<3, 8>(x, wdw, bdw, w1, b1, out, B, C, C_out, H, W, st);
-    if (nt <= 6)
+    case 6:
       return launch_bf16<6, 8>(x, wdw, bdw, w1, b1, out, B, C, C_out, H, W, st);
-    if (nt <= 12)
+    case 12:
       return launch_bf16<12, 4>(x, wdw, bdw, w1, b1, out, B, C, C_out, H, W, st);
-    if (nt <= 18)
+    case 18:
       return launch_bf16<18, 4>(x, wdw, bdw, w1, b1, out, B, C, C_out, H, W, st);
-    return launch_bf16<24, 4>(x, wdw, bdw, w1, b1, out, B, C, C_out, H, W, st);
+    case 24:
+      return launch_bf16<24, 4>(x, wdw, bdw, w1, b1, out, B, C, C_out, H, W, st);
+    case 103:
+      return launch_f32<3, 8>(x, wdw, bdw, w1, b1, out, scratch, B, C, C_out,
+                              H, W, st);
+    case 106:
+      return launch_f32<6, 8>(x, wdw, bdw, w1, b1, out, scratch, B, C, C_out,
+                              H, W, st);
+    case 112:
+      return launch_f32<12, 4>(x, wdw, bdw, w1, b1, out, scratch, B, C, C_out,
+                               H, W, st);
+    case 118:
+      return launch_f32<18, 4>(x, wdw, bdw, w1, b1, out, scratch, B, C, C_out,
+                               H, W, st);
+    case 124:
+      return launch_f32<24, 4>(x, wdw, bdw, w1, b1, out, scratch, B, C, C_out,
+                               H, W, st);
   }
-  const dim3 grid((W + TW32 - 1) / TW32, (H + TH32 - 1) / TH32, B);
-  const size_t smem = f32_smem(C);
-  cudaError_t err = prepare(refiner_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  refiner_f32_kernel<<<grid, THREADS32, smem, st>>>(
-      (const float*)x, (const float*)wdw, (const float*)bdw,
-      (const float*)w1, (const float*)b1, (float*)out, C, C_out, H, W);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

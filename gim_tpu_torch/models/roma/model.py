@@ -132,11 +132,14 @@ class TransformerDecoder(nn.Module):
         return out[..., :-1], out[..., -1:]
 
 
-def cls_to_flow_refine(cls_logits: torch.Tensor) -> torch.Tensor:
+def cls_to_flow_refine(cls_logits: torch.Tensor,
+                       mode: torch.Tensor | None = None) -> torch.Tensor:
     """Anchor classifier -> flow: argmax (first index on ties) and its
     4 neighbours, clipped to the grid, averaged by their probabilities
-    (ref roma.py:1091-1121). cls_logits: (B, H, W, res^2). Returns
-    (B, H, W, 2) normalized flow."""
+    (ref roma.py:1091-1121). cls_logits: (B, H, W, res^2); `mode`, (B, H,
+    W) anchor indices, takes the argmax's place where given (chip_smoke.py
+    phase 31 pins one run's anchors in another). Returns (B, H, W, 2)
+    normalized flow."""
     C = cls_logits.shape[-1]
     res = round(math.sqrt(C))
     lin = torch.linspace(-1 + 1 / res, 1 - 1 / res, res,
@@ -144,7 +147,8 @@ def cls_to_flow_refine(cls_logits: torch.Tensor) -> torch.Tensor:
     gy, gx = torch.meshgrid(lin, lin, indexing="ij")
     G = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)      # (C, 2)
     probs = torch.softmax(cls_logits, dim=-1)
-    mode = probs.argmax(dim=-1)
+    if mode is None:
+        mode = probs.argmax(dim=-1)
     idx = torch.stack([mode - 1, mode, mode + 1, mode - res, mode + res],
                       dim=-1).clamp(0, C - 1)
     neigh = probs.gather(-1, idx)                                  # (.., 5)

@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -26,7 +27,7 @@ SOURCES = ("dsmax", "refiner", "flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -46,37 +47,47 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _inputs(name: str) -> list[Path]:
-    """csrc/<name>.cu and the csrc headers it includes (`#include "x"`)."""
-    src = CSRC / f"{name}.cu"
+def _inputs(name: str, csrc: Path | None = None) -> list[Path]:
+    """<csrc>/<name>.cu and the headers it includes (`#include "x"`)."""
+    csrc = csrc or CSRC
+    src = csrc / f"{name}.cu"
     heads = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
-    return [src, *(CSRC / h for h in heads)]
+    return [src, *(csrc / h for h in heads)]
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in _inputs(name):
+def library_path(name: str, csrc: Path | None = None,
+                 flags: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
+    for f in _inputs(name, csrc):
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    out = library_path(name)
+def _start_build(name: str, csrc: Path | None,
+                 flags: tuple[str, ...]) -> tuple[subprocess.Popen, Path,
+                                                  Path] | None:
+    out = library_path(name, csrc, flags)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    # unique per process and thread: variants with one source build apart
+    tmp = out.with_name(
+        f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+           str((csrc or CSRC) / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
+def build_all(names=SOURCES, csrc: Path | None = None,
+              flags: tuple[str, ...] = ()) -> dict[str, str]:
     """Compile every named source that is not built yet, one nvcc for each,
     all started together. Returns each build's compiler output ("" when
-    the library was already built); raises if a build fails."""
-    started = {n: _start_build(n) for n in names}
+    the library was already built); raises if a build fails. `csrc` and
+    `flags` build another source directory or with extra nvcc flags (a
+    variant, as `f32_probe.py` builds them)."""
+    started = {n: _start_build(n, csrc, flags) for n in names}
     logs = {}
     for n, job in started.items():
         if job is None:
@@ -91,11 +102,14 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    lib = _LIBS.get(name)
+def load_library(name: str, csrc: Path | None = None,
+                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (or a variant: `build_all`),
+    built first if needed."""
+    key = (name, str(csrc), flags)
+    lib = _LIBS.get(key)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        build_all((name,), csrc, flags)
+        lib = ctypes.CDLL(str(library_path(name, csrc, flags)))
+        _LIBS[key] = lib
     return lib

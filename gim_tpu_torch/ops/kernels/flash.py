@@ -5,16 +5,20 @@ softmax(q k^T / sqrt(D)) v over q, k, v of shape (B, H, N, D), without
 writing the (N, N) matrix to device memory. The kernel
 (`csrc/flash.cu`) takes D in {64, 128} (the DINOv2 ViT-L heads and the
 RoMa coordinate decoder's), bf16 through TMA and wgmma or float32 through
-FMA, and masks the ragged query and key edges itself.
+3xTF32 products on wgmma, and masks the ragged query and key edges
+itself.
 
 Argument contract on the card. q, k and v may be strided views, as the
 qkv split of a ViT block gives them (`qkv.permute(2, 0, 3, 1, 4)
 .unbind(0)`: unit stride along D, row stride 3 C, head stride D): the
 kernel reads them in place. Every stride but the last must be a multiple
-of 16 bytes and every base 16-byte aligned (TMA's rule; `kernel_args`
-checks and raises, and nothing is copied in their place). The result is
+of 16 bytes and every base 16-byte aligned (TMA's rule in bf16, 16-byte
+loads in float32; `kernel_args` checks and raises, and nothing is copied
+in their place). The result is
 a (B, H, N, D) view of a contiguous (B, N, H, D) buffer, so
 `o.transpose(1, 2).reshape(B, N, H * D)` merges the heads without a copy.
+In float32 the wrapper also hands the kernel a scratch buffer, where a
+split pass writes K and V in TF32 parts (twice their size).
 
 `flash_sdpa` takes the plain version `flash_sdpa_plain` (the einsum +
 softmax of `ops.attention.sdpa`) only for CPU tensors; for a CUDA tensor
@@ -34,7 +38,7 @@ from gim_tpu_torch.ops.kernels.build import load_library
 from gim_tpu_torch.ops.kernels.forward_only import forward_only
 
 HEAD_DIMS = (64, 128)
-ALIGN = 16            # bytes: TMA's rule for bases and strides
+ALIGN = 16            # bytes: bases and strides (TMA, 16-byte loads)
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -43,13 +47,17 @@ _I = ctypes.c_int
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
-def _lib():
-    lib = load_library("flash")
+def _lib(csrc=None, flags=()):
+    """The built csrc/flash.cu with its C interface typed; `csrc` and
+    `flags` load a variant instead (`build.build_all`)."""
+    lib = load_library("flash", csrc, flags)
     if not getattr(lib, "_gim_typed", False):
-        lib.flash_attention.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        ctypes.POINTER(ctypes.c_longlong),
+        lib.flash_attention.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, ctypes.POINTER(ctypes.c_longlong),
                                         ctypes.c_float, _P]
         lib.flash_attention.restype = _I
+        lib.flash_scratch_bytes.argtypes = [_I, _I, _I, _I, _I]
+        lib.flash_scratch_bytes.restype = ctypes.c_longlong
         lib._gim_typed = True
     return lib
 
@@ -120,11 +128,16 @@ def _flash_sdpa(q, k, v):
     strides += [N * H * D, D, H * D]
     arr = (ctypes.c_longlong * 12)(*strides)
     lib = _lib()
+    code = _DTYPE_CODE[q.dtype]
+    # float32: the kernel's scratch for K and V split into TF32 parts
+    n = lib.flash_scratch_bytes(code, B, H, N, D)
+    scratch = torch.empty(n // 4, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention(_DTYPE_CODE[q.dtype], q.data_ptr(),
-                                  k.data_ptr(), v.data_ptr(), buf.data_ptr(),
-                                  B, H, N, D, arr, float(D ** -0.5), stream)
+        err = lib.flash_attention(code, q.data_ptr(), k.data_ptr(),
+                                  v.data_ptr(), buf.data_ptr(),
+                                  scratch.data_ptr() if n else None, B, H, N,
+                                  D, arr, float(D ** -0.5), stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1

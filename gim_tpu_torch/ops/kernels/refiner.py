@@ -4,16 +4,18 @@ Port of `gim_tpu/ops/pallas_kernels/refiner.py`: one hidden block of the
 DKM/RoMa ConvRefiner at inference, depthwise KxK (K = 5, SAME) with the
 BatchNorm running statistics folded into its taps and bias, ReLU, then the
 1x1 convolution C -> C_out plus bias, in one pass over x (B, C, H, W),
-NCHW. The kernel (`csrc/refiner.cu`) takes bf16 (persistent,
-warp-specialised blocks: depthwise in float32 FMAs beside the 1x1 on the
-tensor cores) or float32 (plain FMA), C and C_out up to 192, and masks the
-ragged edge itself.
+NCHW. The kernel (`csrc/refiner.cu`) takes bf16 or float32 in one
+arrangement (persistent, warp-specialised blocks: the depthwise in float32
+FMAs beside the 1x1 on the tensor cores, in bf16 or, for float32, in
+3xTF32), C and C_out up to 192, and masks the ragged edge itself.
 
 Argument contract on the card: x, the folded parameters and the output
-are contiguous and of one dtype; any H, W >= 1. In bf16 the kernel reads
-x's rows with 16-byte copies and writes the output with 16-byte stores
-where W is a multiple of 8 and the bases are 16-byte aligned, and with
-element loads and stores otherwise (same results, slower).
+are contiguous and of one dtype; any H, W >= 1. The kernel reads x's rows
+with 16-byte copies (bf16) or TMA boxes (float32) where W is a multiple
+of 8 (bf16) or 4 (float32) and x is 16-byte aligned, and with element
+loads otherwise (same results, slower); bf16 also wants the output
+16-byte aligned for its 16-byte stores. In float32 the wrapper hands the
+kernel a scratch buffer, where a split pass writes w1's TF32 parts.
 
 `fold_block_params` folds a block's modules into the kernel's inputs.
 `fused_dw_block` takes the plain version `fused_dw_block_plain` (grouped
@@ -43,14 +45,18 @@ _I = ctypes.c_int
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
-def _lib():
-    lib = load_library("refiner")
+def _lib(csrc=None, flags=()):
+    """The built csrc/refiner.cu with its C interface typed; `csrc` and
+    `flags` load a variant instead (`build.build_all`)."""
+    lib = load_library("refiner", csrc, flags)
     if not getattr(lib, "_gim_typed", False):
         lib.refiner_max_channels.argtypes = []
         lib.refiner_max_channels.restype = _I
-        lib.refiner_block.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _P]
+        lib.refiner_block.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _P]
         lib.refiner_block.restype = _I
+        lib.refiner_scratch_bytes.argtypes = [_I, _I, _I]
+        lib.refiner_scratch_bytes.restype = ctypes.c_longlong
         if lib.refiner_max_channels() != MAX_CHANNELS:
             raise RuntimeError("csrc/refiner.cu MAXC differs from "
                                "MAX_CHANNELS")
@@ -132,12 +138,17 @@ def _fused_dw_block(x, wdw, bdw, w1, b1):
         raise ValueError(f"bad shape {tuple(x.shape)}")
     out = torch.empty((B, C_out, H, W), dtype=x.dtype, device=x.device)
     lib = _lib()
+    code = _DTYPE_CODE[x.dtype]
+    # float32: the kernel's scratch for w1 split into TF32 parts
+    n = lib.refiner_scratch_bytes(code, C, C_out)
+    scratch = torch.empty(n // 4, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.refiner_block(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                                wdw.data_ptr(), bdw.data_ptr(),
-                                w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-                                B, C, C_out, H, W, stream)
+        err = lib.refiner_block(code, x.data_ptr(), wdw.data_ptr(),
+                                bdw.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                out.data_ptr(),
+                                scratch.data_ptr() if n else None, B, C,
+                                C_out, H, W, stream)
     if err:
         raise RuntimeError(f"refiner_block launch failed: CUDA error {err}")
     LAUNCHES["refiner_block"] += 1

@@ -10,7 +10,11 @@ coordinate decoder's head dim).
 
 The argument builder `kernel_args` (what the CUDA kernel is handed: shape
 and strides of the strided q, k, v views) is pure Python and tested here
-without a card.
+without a card, in bf16 (TMA's rule) and float32 (16-byte loads).
+
+The float32 kernel runs both products as 3xTF32; that arithmetic is
+emulated in numpy (`tests/test_torch_refiner.matmul_3xtf32`) at the
+model's N = 2305 and held to a tenth of the tolerance against float64.
 
 Tolerances are the JAX package's own for this kernel: float32 rtol = atol
 = 2e-4 (sums in another order, online against two-pass softmax); bf16
@@ -27,6 +31,7 @@ from gim_tpu.ops.attention import sdpa as j_sdpa
 from gim_tpu.ops.pallas_kernels.flash import flash_sdpa as j_flash
 from gim_tpu_torch.ops.attention import sdpa
 from gim_tpu_torch.ops.kernels import flash as K
+from tests.test_torch_refiner import matmul_3xtf32
 
 SHAPES = [
     ((2, 3, 80, 16), 32, 32),     # N not a block multiple (pad + mask)
@@ -154,6 +159,62 @@ def test_kernel_args_reject(make, match):
     assert q.shape[-1] == 64
     with pytest.raises(ValueError, match=match):
         K.kernel_args(q, q, q)
+
+
+def _f32_rows(pitch):
+    """float32 (1, 2, 64, 64) views whose rows are `pitch` floats apart."""
+    return torch.zeros(2 * 64 * pitch).view(1, 2, 64, pitch)[..., :64]
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: _f32_rows(68), None),           # 272-byte rows: taken
+    (lambda: _f32_rows(66), "multiples of 16"),
+    (lambda: torch.zeros(4 + 2 * 64 * 64)[4:].view(1, 2, 64, 64), None),
+    (lambda: torch.zeros(1 + 2 * 64 * 64)[1:].view(1, 2, 64, 64),
+     "aligned"),
+    (lambda: torch.zeros(1, 2, 64, 128)[..., ::2], "unit stride"),
+    (lambda: torch.zeros(1, 2, 64, 96)[..., :64], None),   # 384-byte rows
+])
+def test_kernel_args_float32(make, match):
+    """The float32 kernel reads rows with 16-byte loads: bases and
+    strides must be multiples of 16 bytes (4 floats), as in bf16."""
+    q = make()
+    assert q.dtype == torch.float32 and q.shape[-1] == 64
+    if match is None:
+        shape, strides = K.kernel_args(q, q, q)
+        assert shape == tuple(q.shape)
+        assert strides == list(q.stride()[:3]) * 3
+    else:
+        with pytest.raises(ValueError, match=match):
+            K.kernel_args(q, q, q)
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 2305, 16, 64), (2, 2304, 8, 128)])
+def test_kernel_args_take_the_model_views_in_float32(B, N, H, D):
+    t = torch.empty(B, N, 3 * H * D)
+    q, k, v = _qkv_views(t, H)
+    shape, strides = K.kernel_args(q, k, v)
+    row = 3 * H * D
+    assert shape == (B, H, N, D) and strides == [N * row, D, row] * 3
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_products_in_3xtf32_keep_float32_accuracy(D):
+    """K3's two products at gim_roma's N = 2305 (64 query rows against all
+    keys): S = q k^T / sqrt(D) and P V with P a softmax row, each within
+    TOL / 10 of float64."""
+    N, rows = 2305, 64
+    rng = np.random.default_rng(D)
+    q = rng.standard_normal((rows, D)).astype(np.float32)
+    k, v = (rng.standard_normal((N, D)).astype(np.float32) for _ in range(2))
+    scale = D ** -0.5
+    s64 = (q.astype(np.float64) @ k.T.astype(np.float64)) * scale
+    s = matmul_3xtf32(q, k.T) * np.float32(scale)
+    assert float(np.abs(s - s64).max()) <= TOL / 10
+    p = np.exp(s64 - s64.max(1, keepdims=True))
+    p = (p / p.sum(1, keepdims=True)).astype(np.float32)
+    o64 = p.astype(np.float64) @ v.astype(np.float64)
+    assert float(np.abs(matmul_3xtf32(p, v) - o64).max()) <= TOL / 10
 
 
 def test_wrapper_rejects_other_devices():

@@ -9,6 +9,12 @@ op sequence (dw conv, BatchNorm running statistics, ReLU, 1x1), on the
 five shapes of that file (ragged H, W not a multiple of 128, C_out != C)
 and an odd width.
 
+The float32 kernel runs its 1x1 on the tensor cores as 3xTF32. Its
+arithmetic is emulated here in numpy (`matmul_3xtf32`: the operands split
+into TF32 hi and lo parts by the kernel's rounding, three products added
+to a float32 accumulator) and held to a tenth of the tolerance against
+float64, where a single TF32 product exceeds the tolerance.
+
 Tolerance: rtol = atol = 1e-4 in float32, the JAX package's own for this
 kernel (tests/test_pallas_kernels.py:117-119): the 25 taps and the 1x1
 contraction are summed in another order by XLA and by PyTorch's CPU
@@ -168,3 +174,169 @@ def test_wrapper_rejects_other_devices():
     w = [torch.zeros(s, device="meta") for s in ((8, 25), (8,), (8, 8), (8,))]
     with pytest.raises(ValueError, match="CUDA"):
         tref.fused_dw_block(x, *w)
+
+
+# -- the float32 kernel's 3xTF32 arithmetic ----------------------------------
+
+
+def tf32_rna(x):
+    """float32 to TF32 (10 mantissa bits), rounded to nearest with ties
+    away from zero, as the kernels compute it (`csrc/hopper.cuh`
+    tf32_rna: half an ulp added to the bits, then the low 13 bits
+    cleared); returned as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(x):
+    """hi = tf32(x), lo = tf32(x - hi); x - hi is exact in float32."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(np.asarray(x, np.float32) - hi)
+
+
+def matmul_3xtf32(a, b):
+    """a (M, K) @ b (K, N) as the kernels compute it: both operands split,
+    and for each k the products lo.hi, hi.lo, hi.hi (exact in float32: 11
+    significant bits each) added in that order to a float32 accumulator.
+    The tensor core's own summation order within a k-step of 8 is not
+    modelled."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        acc += np.outer(al[:, k], bh[k])
+        acc += np.outer(ah[:, k], bl[k])
+        acc += np.outer(ah[:, k], bh[k])
+    return acc
+
+
+def matmul_1xtf32(a, b):
+    """The same with one TF32 product (what TF32 on would give)."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(a.shape[1]):
+        acc += np.outer(ah[:, k], bh[k])
+    return acc
+
+
+def _tf32_reference(x):
+    """Round to 11 significant bits, ties away from zero, in float64."""
+    x = np.asarray(x, np.float64)
+    m, e = np.frexp(x)                       # x = m 2^e, |m| in [0.5, 1)
+    r = np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5)
+    return np.ldexp(r, e - 11)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(20000) * 10.0 ** rng.uniform(-6, 6, 20000)
+         ).astype(np.float32)
+    # exact ties: the 13 dropped bits are 1 followed by zeros
+    ties = ((x.view(np.uint32) & np.uint32(0xFFFFE000))
+            | np.uint32(0x1000)).view(np.float32)
+    for v in (x, ties, np.float32([0.0, -0.0, 1.0, -1.0, 3e-38])):
+        np.testing.assert_array_equal(tf32_rna(v).astype(np.float64),
+                                      _tf32_reference(v))
+    hi, lo = split_tf32(x)
+    assert (np.abs(lo) <= np.abs(x) * 2.0 ** -11).all()
+    assert (np.abs(hi.astype(np.float64) + lo - x) <= np.abs(x) * 2.0 ** -22
+            ).all()
+
+
+@pytest.mark.parametrize("C", [24, 144, 192])
+def test_1x1_in_3xtf32_keeps_float32_accuracy(C):
+    """K2's 1x1 at the refiners' widths (C = C_out), h = relu(N(0, 1)),
+    w1 ~ N(0, 1/C), 2048 pixels: 3xTF32 within TOL / 10 of float64; one
+    TF32 product is over TOL."""
+    rng = np.random.default_rng(C)
+    h = np.maximum(rng.standard_normal((2048, C)), 0.0).astype(np.float32)
+    w = (rng.standard_normal((C, C)) / np.sqrt(C)).astype(np.float32)
+    want = h.astype(np.float64) @ w.astype(np.float64)
+    err3 = float(np.abs(matmul_3xtf32(h, w) - want).max())
+    err1 = float(np.abs(matmul_1xtf32(h, w) - want).max())
+    assert err3 <= TOL / 10, err3
+    assert err1 > TOL, err1
+
+
+# -- variants of the kernels (ops/kernels/f32_probe.py) ----------------------
+
+
+@pytest.mark.parametrize("name", ["refiner", "flash"])
+@pytest.mark.parametrize("variant", ["copy", "edited", "flags"])
+def test_library_path_of_a_variant(name, variant, tmp_path):
+    """A variant built from another source directory or with extra nvcc
+    flags (as f32_probe.py builds them) has its own library path, apart
+    from this checkout's build; an unedited copy of the sources shares
+    it."""
+    from gim_tpu_torch.ops.kernels import build
+
+    for f in build._inputs(name):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    flags = ()
+    if variant == "edited":
+        with open(tmp_path / f"{name}.cu", "a") as f:
+            f.write("\n// edited\n")
+    elif variant == "flags":
+        flags = ("-DF32_PROBE_NO_EXP",)
+    assert build._inputs(name, tmp_path)[0] == tmp_path / f"{name}.cu"
+    same = build.library_path(name, tmp_path, flags) == \
+        build.library_path(name)
+    assert same == (variant == "copy")
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], {"kernel": ("gim_tpu_torch/csrc", ())}),
+    (["parent=build/parent/gim_tpu_torch/csrc", "no_compute"],
+     {"parent": ("build/parent/gim_tpu_torch/csrc", ()),
+      "no_compute": (None, ("-DF32_PROBE_NO_1X1",
+                            "-DF32_PROBE_NO_DEPTHWISE"))}),
+    (["no_softmax_exp"], {"no_softmax_exp": (None,
+                                             ("-DF32_PROBE_NO_EXP",))}),
+])
+def test_probe_variants(argv, want):
+    """f32_probe's arguments: NAME=DIR (a directory from the root of the
+    checkout) or an ablation (this checkout's sources with its macros);
+    anything else exits."""
+    from gim_tpu_torch.ops.kernels import f32_probe
+
+    got = f32_probe.variants(argv)
+    assert list(got) == list(want)
+    for name, (d, flags) in want.items():
+        assert got[name][1] == flags
+        assert got[name][0] == (None if d is None else f32_probe.ROOT / d)
+    with pytest.raises(SystemExit):
+        f32_probe.variants(["no_such_ablation"])
+
+
+def test_probe_ablation_macros_are_in_the_sources():
+    """Each ablation's macro guards code in the source it names, so a
+    variant build differs from the kernel it ablates."""
+    from gim_tpu_torch.ops.kernels import build, f32_probe
+
+    text = {n: (build.CSRC / f"{n}.cu").read_text()
+            for n in ("refiner", "flash")}
+    for flags in f32_probe.ABLATIONS.values():
+        for flag in flags:
+            macro = flag.removeprefix("-D")
+            assert any(f"#ifndef {macro}\n" in t for t in text.values()), \
+                macro
+
+
+@pytest.mark.parametrize("entry,at", [("refiner_block", 7),
+                                      ("flash_attention", 5)])
+def test_probe_calls_older_libraries_without_scratch(entry, at):
+    """Sources from before the float32 kernels took a scratch buffer are
+    called with the wrappers' arguments less the scratch pointer, and ask
+    for no scratch."""
+    from types import SimpleNamespace
+
+    from gim_tpu_torch.ops.kernels import f32_probe
+
+    seen = []
+    lib = SimpleNamespace(**{entry: lambda *a: seen.append(a) or 0})
+    old = f32_probe._NoScratch(lib, entry)
+    kind = entry.split("_")[0]
+    assert getattr(old, f"{kind}_scratch_bytes")(1, 2, 3) == 0
+    args = tuple(range(13))
+    assert getattr(old, entry)(*args) == 0
+    assert seen == [args[:at] + args[at + 1:]]

@@ -10,9 +10,13 @@
   JAX sweep hands its CLI (the port adds `--device`), over a tree of two
   synthetic datasets and one missing; and, run for real with root_sift,
   it writes both dumps and prints the check and the AUC table.
+- A failed consistency check (a second method's dump of a scene covering
+  fewer pairs) is a warning in both sweeps: each prints it and the AUC
+  table and returns, with the same output.
 """
 
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -149,3 +153,42 @@ def test_sweep_runs_zeb_eval_check_and_analysis(tmp_path, capsys):
     res = analysis.main(["--dir", out_dir, "--wid", "root_sift",
                          "--version", "t0"])
     assert set(res) == {"GL3D", "BlendedMVS"}
+
+
+def test_sweep_with_a_failed_check_returns_as_the_jax_sweep(tmp_path,
+                                                            monkeypatch,
+                                                            capsys):
+    from gim_tpu.cli import sweep as j_sweep
+    from gim_tpu.cli import zeb_eval as j_eval
+    from gim_tpu_torch.cli import sweep as t_sweep
+    from gim_tpu_torch.cli import zeb_eval as t_eval
+
+    data = _two_datasets(tmp_path)
+    out_dir = str(tmp_path / "dump")
+    common = ["--weight", "root_sift", "--version", "t0", "--data_root",
+              data, "--out_dir", out_dir, "--tests", "GL3D", "BlendedMVS",
+              "--img_size", "256", "--ransac", "FAST"]
+    t_sweep.main(common + ["--device", "cpu"])      # root_sift's dumps
+    assert capsys.readouterr().out.count("Good") == 2
+    # a second method's GL3D dump over 2 of the 3 pairs, as a run with
+    # --max_samples 2 writes it
+    with open(TE.dump_path(out_dir, "root_sift", "GL3D", "t0")) as f:
+        rows = f.read().splitlines()
+    with open(TE.dump_path(out_dir, "gim_dkm", "GL3D", "t0"), "w") as f:
+        f.write("\n".join(rows[:3]) + "\n")
+    # the dumps exist: each sweep's evaluation calls are stubbed, its check
+    # and its AUC table run
+    monkeypatch.setattr(j_eval, "main", lambda argv: None)
+    monkeypatch.setattr(t_eval, "main", lambda argv: None)
+    assert j_sweep.main(common) is None
+    jax_out = capsys.readouterr().out
+    assert t_sweep.main(common + ["--device", "cpu"]) is None
+    port_out = capsys.readouterr().out
+    assert "GL3D: Bad (2 methods, 2 pairs)" in port_out
+    assert "[sweep] consistency check failed (1); see above" in port_out
+    assert "BlendedMVS: Good (1 methods, 3 pairs)" in port_out
+    assert "mean auc@5" in port_out
+    # the AUC table's heading carries the wall clock's date and time
+    stamp = re.compile(r"\d{4}-\d{2}-\d{2}, \d{2}:\d{2}:\d{2}")
+    assert stamp.search(port_out)
+    assert stamp.sub("T", port_out) == stamp.sub("T", jax_out)
