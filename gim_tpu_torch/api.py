@@ -29,6 +29,7 @@ from gim_tpu_torch.models.loftr import LoFTRMatcher
 from gim_tpu_torch.models.roma import RoMaMatcher
 from gim_tpu_torch.models.superpoint import SuperPointNet, extract
 from gim_tpu_torch.utils.device import resolve_device, set_tf32, torch_dtype
+from gim_tpu_torch.utils.profiling import span
 from gim_tpu_torch.weights import port
 
 
@@ -173,6 +174,7 @@ class Matcher:
                         generator=generator)
 
 
+@span("gim.match")
 def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
              image1, scale0=None, scale1=None, mask0=None, mask1=None, *,
              device: str | torch.device = "cuda",
@@ -199,16 +201,18 @@ def match_fn(name: str, cfg: C.GimConfig, model: torch.nn.Module, image0,
     def put(t, dtype=None):
         return None if t is None else torch.as_tensor(t).to(dev, dtype)
 
-    scale0 = (put(scale0, torch.float32) if scale0 is not None
-              else torch.ones((B, 2), device=dev))
-    scale1 = (put(scale1, torch.float32) if scale1 is not None
-              else torch.ones((B, 2), device=dev))
-    image0 = put(image0, torch.float32)
-    image1 = put(image1, torch.float32)
+    with span("gim.match.inputs"):
+        scale0 = (put(scale0, torch.float32) if scale0 is not None
+                  else torch.ones((B, 2), device=dev))
+        scale1 = (put(scale1, torch.float32) if scale1 is not None
+                  else torch.ones((B, 2), device=dev))
+        image0 = put(image0, torch.float32)
+        image1 = put(image1, torch.float32)
+        if name != "root_sift":
+            mask0 = put(mask0, torch.bool)
+            mask1 = put(mask1, torch.bool)
     if name == "root_sift":
         return _match_root_sift(image0, image1, scale0, scale1)
-    mask0 = put(mask0, torch.bool)
-    mask1 = put(mask1, torch.bool)
     with torch.inference_mode():
         if name in SAMPLE_SEED:
             if generator is None and sample_noise is None:
@@ -336,11 +340,13 @@ def _match_roma(cfg: C.GimConfig, model, image0, image1, scale0, scale1,
 def _sample(c, warp, cert, generator, sample_noise):
     """Balanced sampling of each pair's dense warp; (matches (B, M, 4),
     conf (B, M), valid (B, M))."""
-    samples = [sample_matches(
-        warp[b], cert[b], c.num_samples, c.sample_thresh, c.sample_mode,
-        generator=generator,
-        noise=None if sample_noise is None else sample_noise[b])
-        for b in range(warp.shape[0])]
+    samples = []
+    for b in range(warp.shape[0]):
+        with span("gim.dkm.sample"):
+            samples.append(sample_matches(
+                warp[b], cert[b], c.num_samples, c.sample_thresh,
+                c.sample_mode, generator=generator,
+                noise=None if sample_noise is None else sample_noise[b]))
     return (torch.stack(t) for t in zip(*samples))
 
 

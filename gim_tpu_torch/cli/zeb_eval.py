@@ -11,6 +11,9 @@ and raises without one. Under torchrun each process evaluates its share
 of the pairs (`parallel.mesh.process_local_pairs`), the rows meet
 through the process group's store, and rank 0 writes the dump:
 `torchrun --nproc_per_node 2 -m gim_tpu_torch.cli.zeb_eval ...`.
+With `GIM_TPU_TRACE=1` the evaluation runs under `utils/profiling.trace`,
+which writes a `torch.profiler` trace holding the port's spans to
+`GIM_TPU_TRACE_DIR`.
 """
 
 from __future__ import annotations
@@ -118,6 +121,7 @@ def main(argv=None):
                                              process_local_pairs, rank,
                                              world_size)
     from gim_tpu_torch.utils.device import resolve_device
+    from gim_tpu_torch.utils.profiling import trace
 
     dev = resolve_device(args.device)     # no CUDA and no --device cpu: raise
     init_from_env(dev, backend="gloo")    # under torchrun: join its group
@@ -170,8 +174,9 @@ def main(argv=None):
 
     n_hyp, use_conf = E.RANSAC_ZOO[args.ransac]
     t0 = time.time()
-    rows = E.evaluate(match, batches(), num_hypotheses=n_hyp,
-                      use_conf=use_conf)
+    with trace("zeb_eval"):          # GIM_TPU_TRACE=1: the port's spans
+        rows = E.evaluate(match, batches(), num_hypotheses=n_hyp,
+                          use_conf=use_conf)
     dt = time.time() - t0
     rows = E.gather_rows_multihost(rows)
     rows_u = E.dedup_rows(rows)

@@ -32,8 +32,10 @@ from gim_tpu_torch.geometry.epipolar import (essential_from_pose,
                                              symmetric_epipolar_distance)
 from gim_tpu_torch.geometry.pose import estimate_pose, relative_pose_error
 from gim_tpu_torch.utils.precision import highp
+from gim_tpu_torch.utils.profiling import span
 
 
+@span("gim.zeb.pose")
 @torch.no_grad()
 @highp
 def pair_metrics(kpts0, kpts1, valid, K0, K1, T_0to1, keys,
@@ -140,20 +142,21 @@ def evaluate(match, batches, *, ransac_thresh: float = 0.5,
                          num_hypotheses,
                          conf=res.conf if use_conf else None,
                          noise=None if noise is None else noise(ids))
-        m = {k: v.cpu().numpy() for k, v in m.items()}
-        valid = res.valid.cpu().numpy()
-        for b in range(valid.shape[0]):
-            v = valid[b]
-            rows.append({
-                "identifier": ids[b],
-                "covisible0": batch["covisible0"][b],
-                "covisible1": batch["covisible1"][b],
-                "epi_errs": m["epi_errs"][b][v],
-                "inliers": m["inliers"][b][v],
-                "R_errs": float(m["R_errs"][b]),
-                "t_errs": float(m["t_errs"][b]),
-                "t_errs2": float(m["t_errs2"][b]),
-            })
+        with span("gim.zeb.rows"):
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+            valid = res.valid.cpu().numpy()
+            for b in range(valid.shape[0]):
+                v = valid[b]
+                rows.append({
+                    "identifier": ids[b],
+                    "covisible0": batch["covisible0"][b],
+                    "covisible1": batch["covisible1"][b],
+                    "epi_errs": m["epi_errs"][b][v],
+                    "inliers": m["inliers"][b][v],
+                    "R_errs": float(m["R_errs"][b]),
+                    "t_errs": float(m["t_errs"][b]),
+                    "t_errs2": float(m["t_errs2"][b]),
+                })
         if progress:
             print(f"[zeb] batch {bi + 1}: {len(rows)} pairs", flush=True)
     return rows

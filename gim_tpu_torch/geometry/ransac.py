@@ -30,6 +30,7 @@ from gim_tpu_torch.geometry.epipolar import sampson_distance, to_homogeneous
 from gim_tpu_torch.geometry.fivepoint import essential_candidates
 from gim_tpu_torch.utils.device import device_constant
 from gim_tpu_torch.utils.precision import highp
+from gim_tpu_torch.utils.profiling import span
 
 CHUNK = 2048          # models scored at once per pair
 
@@ -46,6 +47,7 @@ def lo_hypotheses(num_hypotheses: int) -> int:
     return max(num_hypotheses // 4, 32)
 
 
+@span("gim.ransac.noise")
 def draw_noise(generators: Sequence[torch.Generator], num_hypotheses: int,
                M: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """RANSAC's two uniform banks, one generator per pair: (B, H, M) for
@@ -333,55 +335,62 @@ def ransac(p0: torch.Tensor, p1: torch.Tensor, valid: torch.Tensor,
         """Minimal sets from `bank`, solved and scored in chunks of CHUNK
         models. Returns (best_gain (B,), best_model (B, 3, 3)); the first
         maximum wins, as the JAX package's per-chunk argmax does."""
-        idx = _sample_minimal(bank, valid, sample_size, sample_conf)
-        if essential:
-            cand, cand_valid = essential_candidates(_rows(p0, idx),
-                                                    _rows(p1, idx))
-            models = cand.flatten(1, 2)               # (B, H*10, 3, 3)
-            mvalid = cand_valid.flatten(1)
-        else:
-            s0, s1 = _rows(q0, idx), _rows(q1, idx)   # (B, H, k, 2)
-            ones = torch.ones(idx.shape, device=dev)
-            solve = solve_homography_raw if homog else solve_epipolar_raw
-            models = denorm(solve(s0, s1, ones))
-            mvalid = torch.ones(models.shape[:2], dtype=torch.bool,
-                                device=dev)
-        gains = []
-        for c0 in range(0, models.shape[1], CHUNK):
-            errs = residuals(models[:, c0:c0 + CHUNK])
-            gains.append(_magsac_gain(errs, thr2_b, valid_f))
-            del errs
-        gain = torch.where(mvalid, torch.cat(gains, 1), -torch.inf)
-        i = gain.argmax(1)                            # (B,)
-        best = models.gather(1, i[:, None, None, None].expand(B, 1, 3, 3))
-        return gain.gather(1, i[:, None])[:, 0], best[:, 0]
+        with span("gim.ransac.solve"):
+            idx = _sample_minimal(bank, valid, sample_size, sample_conf)
+            if essential:
+                cand, cand_valid = essential_candidates(_rows(p0, idx),
+                                                        _rows(p1, idx))
+                models = cand.flatten(1, 2)           # (B, H*10, 3, 3)
+                mvalid = cand_valid.flatten(1)
+            else:
+                s0, s1 = _rows(q0, idx), _rows(q1, idx)   # (B, H, k, 2)
+                ones = torch.ones(idx.shape, device=dev)
+                solve = solve_homography_raw if homog else solve_epipolar_raw
+                models = denorm(solve(s0, s1, ones))
+                mvalid = torch.ones(models.shape[:2], dtype=torch.bool,
+                                    device=dev)
+        with span("gim.ransac.score"):
+            gains = []
+            for c0 in range(0, models.shape[1], CHUNK):
+                errs = residuals(models[:, c0:c0 + CHUNK])
+                gains.append(_magsac_gain(errs, thr2_b, valid_f))
+                del errs
+            gain = torch.where(mvalid, torch.cat(gains, 1), -torch.inf)
+            i = gain.argmax(1)                        # (B,)
+            best = models.gather(1, i[:, None, None, None].expand(B, 1, 3, 3))
+            return gain.gather(1, i[:, None])[:, 0], best[:, 0]
 
-    best_gain, best_model = hypothesize_and_score(noise1, conf)
+    with span("gim.ransac.hypotheses"):
+        best_gain, best_model = hypothesize_and_score(noise1, conf)
 
     # LO resampling round: fresh minimal samples preferentially from the
     # best model's (loose) inlier set (Chum, Matas & Kittler, 2003)
-    e_best = residuals(best_model[:, None])[:, 0]     # (B, M)
-    loose_in = ((e_best < 4.0 * thr2[:, None]) & valid).float()
-    gain2, model2 = hypothesize_and_score(noise2, loose_in)
-    better = gain2 > best_gain
-    best_model = torch.where(better[:, None, None], model2, best_model)
-    best_gain = torch.where(better, gain2, best_gain)
+    with span("gim.ransac.lo"):
+        e_best = residuals(best_model[:, None])[:, 0]     # (B, M)
+        loose_in = ((e_best < 4.0 * thr2[:, None]) & valid).float()
+        gain2, model2 = hypothesize_and_score(noise2, loose_in)
+        better = gain2 > best_gain
+        best_model = torch.where(better[:, None, None], model2, best_model)
+        best_gain = torch.where(better, gain2, best_gain)
 
     # local optimization: IRLS refits on the inliers, each kept only if
     # it does not lower the marginalized gain
     solve = solve_homography_raw if homog else solve_epipolar_raw
-    for _ in range(refine_rounds):
-        e = residuals(best_model[:, None])[:, 0]
-        w = torch.where((e < thr2[:, None]) & valid,
-                        1.0 / torch.maximum(e, 1e-10 * thr2[:, None]), 0.0)
-        w = w.clamp_max(1e6)
-        w = w / w.amax(-1, keepdim=True).clamp_min(1e-12)
-        enough = (w > 0).sum(-1) >= sample_size
-        new = denorm(solve(q0, q1, w)[:, None])       # (B, 1, 3, 3)
-        new_gain = _magsac_gain(residuals(new), thr2_b, valid_f)[:, 0]
-        accept = enough & (new_gain >= best_gain)
-        best_model = torch.where(accept[:, None, None], new[:, 0], best_model)
-        best_gain = torch.where(accept, new_gain, best_gain)
+    with span("gim.ransac.irls"):
+        for _ in range(refine_rounds):
+            e = residuals(best_model[:, None])[:, 0]
+            w = torch.where((e < thr2[:, None]) & valid,
+                            1.0 / torch.maximum(e, 1e-10 * thr2[:, None]),
+                            0.0)
+            w = w.clamp_max(1e6)
+            w = w / w.amax(-1, keepdim=True).clamp_min(1e-12)
+            enough = (w > 0).sum(-1) >= sample_size
+            new = denorm(solve(q0, q1, w)[:, None])       # (B, 1, 3, 3)
+            new_gain = _magsac_gain(residuals(new), thr2_b, valid_f)[:, 0]
+            accept = enough & (new_gain >= best_gain)
+            best_model = torch.where(accept[:, None, None], new[:, 0],
+                                     best_model)
+            best_gain = torch.where(accept, new_gain, best_gain)
 
     final_err = residuals(best_model[:, None])[:, 0]
     inliers = (final_err < thr2[:, None]) & valid
@@ -433,6 +442,7 @@ def decompose_essential(E: torch.Tensor):
     return u @ W @ vt, u @ W.T @ vt, u[..., :, 2]
 
 
+@span("gim.pose.recover")
 @highp
 def recover_pose(E: torch.Tensor, p0: torch.Tensor, p1: torch.Tensor,
                  weights: torch.Tensor, max_depth: float = 1e9):

@@ -41,6 +41,7 @@ from gim_tpu_torch.models.dkm.blocks import (DFN, GP, ConvRefiner,
 from gim_tpu_torch.models.dkm.encoder import ResNet50Pyramid
 from gim_tpu_torch.ops.resize import nearest_indices, resize_bilinear
 from gim_tpu_torch.utils.device import torch_dtype
+from gim_tpu_torch.utils.profiling import span
 
 REFINER_SPECS = {
     # scale: (in_dim, hidden_dim, disp_emb_dim, local_corr_radius)
@@ -54,6 +55,10 @@ REFINER_SPECS = {
 
 # the GP and DFN scales and the width of their 1x1 projections' inputs
 PROJ_IN = {"32": 2048, "16": 1024}
+
+# the decoder's spans: one stride of its loop, and the refiner at it
+SCALE_SPANS = {s: f"gim.dkm.scale.{s}" for s in ("32", "16", *REFINER_SPECS)}
+REFINER_SPANS = {s: f"gim.dkm.refiner.{s}" for s in REFINER_SPECS}
 
 
 class DKMDecoder(nn.Module):
@@ -79,6 +84,7 @@ class DKMDecoder(nn.Module):
             for s, (i, h, e, r) in REFINER_SPECS.items()
             if s in cfg.refiner_scales})
 
+    @span("gim.dkm.decoder")
     def forward(self, f1: dict, f2: dict, upsample: bool = False,
                 flow: torch.Tensor | None = None,
                 certainty: torch.Tensor | None = None) -> dict:
@@ -107,35 +113,38 @@ class DKMDecoder(nn.Module):
 
         out = {}
         for s in scales:
-            ins = int(s)
-            f1_s, f2_s = f1[ins], f2[ins]
-            if s in self.proj:
-                f1_s = conv(self.proj[s], f1_s, dt)
-                f2_s = conv(self.proj[s], f2_s, dt)
-            if s in self.gps and not upsample:
-                context = resize_bilinear(context, sizes[ins])
-                post = self.gps[s](f1_s.permute(0, 2, 3, 1),
-                                   f2_s.permute(0, 2, 3, 1))
-                # the DFN's prediction replaces the flow and the certainty
-                flow, certainty, context = self.embedding_decoder(
-                    s, post, f1_s, context)
-            if s in self.conv_refiner:
-                refiner = self.conv_refiner[s]
-                if self.train_mode:
-                    delta_cert, disp = recomputed(refiner, f1_s, f2_s, flow)
-                else:
-                    delta_cert, disp = refiner(f1_s, f2_s, flow)
-                # the displacement is in units of 4 px of this pass's
-                # full resolution
-                flow = torch.stack([flow[..., 0] + ins * disp[..., 0] / (4 * W),
-                                    flow[..., 1] + ins * disp[..., 1] / (4 * H)],
-                                   dim=-1)
-                certainty = certainty + delta_cert
-            out[ins] = {"flow": flow, "certainty": certainty}
-            if s != "1":
-                nxt = sizes[ins // 2]
-                flow = resize_nhwc(flow, *nxt).detach()
-                certainty = resize_nhwc(certainty, *nxt).detach()
+            with span(SCALE_SPANS[s]):
+                ins = int(s)
+                f1_s, f2_s = f1[ins], f2[ins]
+                if s in self.proj:
+                    f1_s = conv(self.proj[s], f1_s, dt)
+                    f2_s = conv(self.proj[s], f2_s, dt)
+                if s in self.gps and not upsample:
+                    context = resize_bilinear(context, sizes[ins])
+                    post = self.gps[s](f1_s.permute(0, 2, 3, 1),
+                                       f2_s.permute(0, 2, 3, 1))
+                    # the DFN's prediction replaces flow and certainty
+                    flow, certainty, context = self.embedding_decoder(
+                        s, post, f1_s, context)
+                if s in self.conv_refiner:
+                    refiner = self.conv_refiner[s]
+                    with span(REFINER_SPANS[s]):
+                        if self.train_mode:
+                            delta_cert, disp = recomputed(refiner, f1_s, f2_s,
+                                                          flow)
+                        else:
+                            delta_cert, disp = refiner(f1_s, f2_s, flow)
+                    # the displacement is in units of 4 px of this pass's
+                    # full resolution
+                    flow = torch.stack(
+                        [flow[..., 0] + ins * disp[..., 0] / (4 * W),
+                         flow[..., 1] + ins * disp[..., 1] / (4 * H)], dim=-1)
+                    certainty = certainty + delta_cert
+                out[ins] = {"flow": flow, "certainty": certainty}
+                if s != "1":
+                    nxt = sizes[ins // 2]
+                    flow = resize_nhwc(flow, *nxt).detach()
+                    certainty = resize_nhwc(certainty, *nxt).detach()
         return out
 
 
@@ -150,6 +159,7 @@ class DKMMatcher(nn.Module):
         self.encoder = ResNet50Pyramid(cfg.dtype)
         self.decoder = DKMDecoder(cfg, train_mode)
 
+    @span("gim.dkm.encoder")
     def pyramids(self, q: torch.Tensor, s: torch.Tensor):
         """q, s: (B, 3, h, w). Returns the query-side and support-side
         pyramids of the batch [q; s], {stride: (2B, C, H, W)}."""

@@ -30,6 +30,7 @@ from gim_tpu_torch.config import LightGlueConfig
 from gim_tpu_torch.ops.attention import apply_rotary, sdpa
 from gim_tpu_torch.ops.matching import (filter_matches,
                                         sigmoid_log_double_softmax)
+from gim_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6        # flax nn.LayerNorm's default
 
@@ -191,6 +192,7 @@ class LightGlue(nn.Module):
         self.log_assignment = nn.ModuleDict(
             {str(cfg.n_layers - 1): MatchAssignment(d)})
 
+    @span("gim.lightglue")
     def forward(self, kpts0, kpts1, desc0, desc1, size0, size1,
                 valid0=None, valid1=None) -> dict:
         """kpts (B, K, 2) pixels (+0.5 centred); desc (B, K, D); size
@@ -206,16 +208,18 @@ class LightGlue(nn.Module):
             smask1 = valid1[:, None, :, None] & valid1[:, None, None, :]
             xmask = valid0[:, None, :, None] & valid1[:, None, None, :]
         for layer in self.transformers:
-            desc0, desc1 = layer(desc0, desc1, enc0, enc1, smask0, smask1,
-                                 xmask)
-        scores, _ = self.log_assignment[str(c.n_layers - 1)](
-            desc0, desc1, valid0, valid1)
-        m0, m1, ms0, ms1 = filter_matches(scores, c.filter_threshold)
-        if valid0 is not None:
-            m0 = torch.where(valid0, m0, -1)
-            m1 = torch.where(valid1, m1, -1)
-            ms0 = torch.where(valid0, ms0, 0.0)
-            ms1 = torch.where(valid1, ms1, 0.0)
+            with span("gim.lightglue.layer"):
+                desc0, desc1 = layer(desc0, desc1, enc0, enc1, smask0,
+                                     smask1, xmask)
+        with span("gim.lightglue.assign"):
+            scores, _ = self.log_assignment[str(c.n_layers - 1)](
+                desc0, desc1, valid0, valid1)
+            m0, m1, ms0, ms1 = filter_matches(scores, c.filter_threshold)
+            if valid0 is not None:
+                m0 = torch.where(valid0, m0, -1)
+                m1 = torch.where(valid1, m1, -1)
+                ms0 = torch.where(valid0, ms0, 0.0)
+                ms1 = torch.where(valid1, ms1, 0.0)
         return {"matches0": m0, "matches1": m1,
                 "matching_scores0": ms0, "matching_scores1": ms1,
                 "log_assignment": scores, "desc0": desc0, "desc1": desc1}

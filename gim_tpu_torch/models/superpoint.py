@@ -19,6 +19,7 @@ from gim_tpu_torch.config import SuperPointConfig
 from gim_tpu_torch.ops.detect import remove_borders, simple_nms, topk_keypoints
 from gim_tpu_torch.ops.sampling import safe_l2_normalize, sample_descriptors
 from gim_tpu_torch.utils.device import device_constant
+from gim_tpu_torch.utils.profiling import span
 
 LUMA = np.array([0.299, 0.587, 0.114], np.float32)  # ref superpoint.py:209
 
@@ -61,6 +62,7 @@ class SuperPointNet(nn.Module):
         return scores[:, 0], desc
 
 
+@span("gim.superpoint")
 def extract(net: SuperPointNet, image: torch.Tensor, cfg: SuperPointConfig,
             image_hw: torch.Tensor | None = None,
             pad_noise: torch.Tensor | None = None) -> dict:
@@ -78,12 +80,13 @@ def extract(net: SuperPointNet, image: torch.Tensor, cfg: SuperPointConfig,
         image = (image * w.to(image.dtype).reshape(1, 3, 1, 1)).sum(
             1, keepdim=True)
     scores, desc = net(image)
-    scores = simple_nms(scores, cfg.nms_radius)
-    scores = remove_borders(scores, cfg.remove_borders, image_hw)
-    kpts, kscores, valid = topk_keypoints(
-        scores, cfg.max_num_keypoints, cfg.detection_threshold,
-        pad_noise=pad_noise if cfg.force_num_keypoints else None,
-        bounds_hw=image_hw)
+    with span("gim.superpoint.keypoints"):
+        scores = simple_nms(scores, cfg.nms_radius)
+        scores = remove_borders(scores, cfg.remove_borders, image_hw)
+        kpts, kscores, valid = topk_keypoints(
+            scores, cfg.max_num_keypoints, cfg.detection_threshold,
+            pad_noise=pad_noise if cfg.force_num_keypoints else None,
+            bounds_hw=image_hw)
     d = sample_descriptors(kpts, desc, 8, legacy=cfg.legacy_sampling)
     return {"keypoints": kpts + 0.5, "scores": kscores, "valid": valid,
             "descriptors": d}

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from gim_tpu_torch.ops.kernels.build import load_library
 from gim_tpu_torch.ops.kernels.forward_only import forward_only
+from gim_tpu_torch.utils.profiling import span
 
 KERNEL_SIZE = 5
 MAX_CHANNELS = 192    # must match MAXC in csrc/refiner.cu
@@ -97,6 +98,7 @@ def fused_dw_block_plain(x, wdw, bdw, w1, b1):
     return F.conv2d(h, w1[:, :, None, None], b1.to(w1.dtype)).to(x.dtype)
 
 
+@span("gim.refiner_block")
 def fused_dw_block(x: torch.Tensor, wdw: torch.Tensor, bdw: torch.Tensor,
                    w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
     """x: (B, C, H, W); wdw: (C, 25); bdw: (C,); w1: (C_out, C); b1:

@@ -3,15 +3,30 @@
 The reference has none (SURVEY §5: only tqdm bars and a Timer util). The
 JAX package takes `jax.profiler` traces and a stage timer that blocks on
 its arrays; here the trace is a `torch.profiler` trace (Chrome trace
-files for TensorBoard or Perfetto), an annotation is an NVTX range plus a
-`record_function` span (so it shows in both the profiler and an NVTX
-timeline), and the stage timer synchronises the devices of the tensors it
-is given, so its numbers are honest under CUDA's asynchronous launches.
+files for TensorBoard or Perfetto), an annotation is a `record_function`
+span, and the stage timer synchronises the devices of the tensors it is
+given, so its numbers are honest under CUDA's asynchronous launches.
+
+`span(name)` is how the port annotates itself: every matching and ZEB
+layer enters one (names start with `gim.`: `gim.match`, `gim.dkm.scale.8`,
+`gim.lightglue.layer`, `gim.ransac.lo`, ...). A span is on exactly while
+a profiler records, under `trace` or any other `torch.profiler` session;
+otherwise it costs one read of the profiler's state and enters a shared
+do-nothing context, so nothing is built or allocated. No span
+synchronises, copies or reorders anything: outputs are the same bit for
+bit with the profiler on and off.
+
+A span is a `record_function` range in the same profiler session that
+records the CUDA activities, so it shares their clock: a kernel belongs
+to the span whose interval holds its launch's host time. The matching and
+ZEB paths run on one host thread in a closed loop, so a span's parent is
+the span that encloses it, and spans need no request identifier.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
@@ -22,28 +37,72 @@ from torch.profiler import (ProfilerActivity, profile, record_function,
 from gim_tpu_torch.utils import flags
 
 
-class TraceAnnotation(contextlib.ContextDecorator):
-    """A named span: an NVTX range on a CUDA machine and a
-    `record_function` span for `torch.profiler`."""
+class _Named:
+    """Used as a decorator, a span is entered at each call of the
+    function, and decides then whether it is on."""
+
+    __slots__ = ()
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+class TraceAnnotation(_Named):
+    """A named `record_function` span for `torch.profiler`."""
+
+    __slots__ = ("name", "_span")
 
     def __init__(self, name: str):
         self.name = name
         self._span = None
-        self._nvtx = False
 
     def __enter__(self):
-        self._nvtx = torch.cuda.is_available()
-        if self._nvtx:
-            torch.cuda.nvtx.range_push(self.name)
         self._span = record_function(self.name)
         self._span.__enter__()
         return self
 
     def __exit__(self, *exc):
         self._span.__exit__(*exc)
-        if self._nvtx:
-            torch.cuda.nvtx.range_pop()
         return False
+
+
+class _Off(_Named):
+    """A span while no profiler records: enters and leaves at no cost."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF: dict[str, _Off] = {}
+# whether a profiler records: one read of the profiler's state in C++,
+# which every `torch.profiler` session sets on start and clears on stop
+recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """The span `name`, as a context manager (`with span("gim.match"):`)
+    or a decorator (`@span("gim.zeb.pose")`): a `TraceAnnotation` while a
+    profiler records, else the name's one shared do-nothing context."""
+    if recording():
+        return TraceAnnotation(name)
+    off = _OFF.get(name)
+    if off is None:
+        off = _OFF[name] = _Off(name)
+    return off
 
 
 @contextlib.contextmanager

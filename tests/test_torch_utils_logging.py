@@ -64,3 +64,25 @@ def test_trace_is_off_unless_asked_and_writes_a_trace(tmp_path, monkeypatch):
             torch.ones(4).sum()
     files = os.listdir(tmp_path / "on")
     assert files and "smoke" in (tmp_path / "on" / files[0]).read_text()
+
+
+def test_zeb_eval_writes_the_ports_spans_under_the_trace_switch(
+        tmp_path, monkeypatch):
+    """`cli/zeb_eval` runs its evaluation under `profiling.trace`: with
+    `GIM_TPU_TRACE` set it writes a trace holding the pose's span, and
+    without it no trace."""
+    import tempfile
+
+    from gim_tpu_torch.cli import zeb_eval
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setenv("GIM_TPU_TRACE_DIR", str(tmp_path / "trace"))
+    argv = ["--synthetic", "--synthetic_pairs", "2", "--weight", "root_sift",
+            "--device", "cpu", "--img_size", "160", "--ransac", "FAST"]
+    monkeypatch.delenv("GIM_TPU_TRACE", raising=False)
+    zeb_eval.main(argv + ["--out_dir", str(tmp_path / "off")])
+    assert not (tmp_path / "trace").exists()
+    monkeypatch.setenv("GIM_TPU_TRACE", "1")
+    zeb_eval.main(argv + ["--out_dir", str(tmp_path / "on")])
+    (trace,) = (tmp_path / "trace").iterdir()
+    assert '"gim.zeb.pose"' in trace.read_text()
