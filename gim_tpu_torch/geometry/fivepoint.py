@@ -19,10 +19,13 @@ any leading sample dims with no loop over samples:
 
 Each sample yields up to 10 candidate essential matrices with a validity
 mask. The tables are module-load numpy constants, as in the JAX package,
-copied to each device once.
+copied to each device once. On the card `essential_candidates` replays the
+solve as one CUDA graph, captured once per input signature.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -342,9 +345,9 @@ def _horner_last(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 @highp
-def essential_candidates(p0: torch.Tensor, p1: torch.Tensor):
-    """5-point minimal solve. p0/p1: (..., 5, 2) normalized camera coords.
-    Returns (E (..., 10, 3, 3), valid (..., 10))."""
+def eager_candidates(p0: torch.Tensor, p1: torch.Tensor):
+    """5-point minimal solve, one operation at a time. p0/p1: (..., 5, 2)
+    normalized camera coords. Returns (E (..., 10, 3, 3), valid (..., 10))."""
     basis = nullspace_basis(p0, p1)                   # (..., 4, 3, 3)
     reduced = gauss_jordan(constraint_matrix(basis))  # (..., 10, 20)
     det, (bxs, bys, b1s) = detb_coeffs(reduced)
@@ -379,3 +382,101 @@ def essential_candidates(p0: torch.Tensor, p1: torch.Tensor):
     valid = valid & torch.isfinite(E).all(-1).all(-1) & (nrm > 1e-9)
     eye = torch.eye(3, dtype=E.dtype, device=E.device)
     return torch.where(valid[..., None, None], E, eye), valid
+
+
+# ---------------------------------------------------------------------------
+# The solve as one CUDA graph per input signature
+# ---------------------------------------------------------------------------
+#
+# `eager_candidates` is about 2,860 small kernels a call whatever the batch,
+# with static shapes and no read of the device from the host: on the card
+# the host's dispatch sets its pace. A replay of its capture launches the
+# same kernels on the same values, so the candidates are bit-identical.
+
+GRAPHS = {"captured": 0, "replayed": 0, "eager": 0}
+_GRAPH_DEVICE = "cuda"
+
+
+class _Graph:
+    """`eager_candidates` captured at the signature of (p0, p1): the
+    static inputs, the graph and its static outputs. Between calls only
+    those stay allocated; the intermediates live in the graph's private
+    pool. Callers share the buffers, so calls must not run concurrently."""
+
+    def __init__(self, p0: torch.Tensor, p1: torch.Tensor):
+        dev = p0.device
+        # outside inference mode, so that later calls may write the inputs
+        with torch.inference_mode(False), torch.no_grad():
+            self.p0 = torch.empty(p0.shape, dtype=p0.dtype, device=dev)
+            self.p1 = torch.empty(p1.shape, dtype=p1.dtype, device=dev)
+            self.p0.copy_(p0)
+            self.p1.copy_(p1)
+            # copies the device constants: a pageable copy cannot be captured
+            eager_candidates(self.p0, self.p1)
+            self.graph = torch.cuda.CUDAGraph()
+            # cuBLAS keeps a workspace (32 MiB on Hopper) for each stream it
+            # has run on until these are cleared: cleared before, the
+            # capture stream's is drawn from the graph's private pool, and
+            # cleared after, it stays there rather than allocated
+            torch._C._cuda_clearCublasWorkspaces()
+            try:
+                with torch.cuda.graph(self.graph,
+                                      stream=torch.cuda.Stream(dev)):
+                    self.out = eager_candidates(self.p0, self.p1)
+            finally:
+                torch._C._cuda_clearCublasWorkspaces()
+
+    def __call__(self, p0: torch.Tensor, p1: torch.Tensor):
+        self.p0.copy_(p0)
+        self.p1.copy_(p1)
+        self.graph.replay()
+        # the next replay overwrites the static outputs
+        return tuple(t.clone() for t in self.out)
+
+
+class _GraphCache:
+    """Captures by (shape, dtype, device), at most `size`, the least
+    recently used dropped first; `capture(p0, p1)` makes one."""
+
+    def __init__(self, capture=_Graph, size: int = 8):
+        self.capture, self.size = capture, size
+        self.entries: OrderedDict = OrderedDict()
+
+    def __call__(self, p0: torch.Tensor, p1: torch.Tensor):
+        key = (tuple(p0.shape), p0.dtype, p0.device)
+        entry = self.entries.pop(key, None)
+        if entry is None:
+            entry = self.capture(p0, p1)
+            GRAPHS["captured"] += 1
+        self.entries[key] = entry
+        if len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+        GRAPHS["replayed"] += 1
+        return entry(p0, p1)
+
+
+_CACHE = _GraphCache()
+
+
+def _capturable(p0: torch.Tensor, p1: torch.Tensor) -> bool:
+    """Whether a replay can stand in for the eager solve: p0 and p1 of one
+    signature on the card, nothing for autograd to record, and no capture
+    already running on the stream."""
+    return (p0.device.type == _GRAPH_DEVICE and p1.device == p0.device
+            and p1.shape == p0.shape and p1.dtype == p0.dtype
+            and not (torch.is_grad_enabled()
+                     and (p0.requires_grad or p1.requires_grad))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def essential_candidates(p0: torch.Tensor, p1: torch.Tensor):
+    """5-point minimal solve. p0/p1: (..., 5, 2) normalized camera coords.
+    Returns (E (..., 10, 3, 3), valid (..., 10)).
+
+    On the card, a replay of the solve captured once per (shape, dtype,
+    device); elsewhere, under autograd or inside another capture, the
+    eager solve. `GRAPHS` counts captures, replays and eager calls."""
+    if _capturable(p0, p1):
+        return _CACHE(p0, p1)
+    GRAPHS["eager"] += 1
+    return eager_candidates(p0, p1)
