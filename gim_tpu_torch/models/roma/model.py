@@ -10,6 +10,12 @@ transformer match decoder classifying over a 64x64+1 anchor grid
 ConvRefiners (:436-580) and 1x1+BN projections (:1230-1243), symmetric
 two-pass matching with certainty attenuation (:815-917).
 
+Spans (`utils/profiling.span`): `gim.roma.vgg` (each VGG19 pass, both
+images as one batch), `gim.roma.dinov2` (the trunk), `gim.roma.decoder`
+(each pass) holding `gim.roma.scale.<s>`, which holds
+`gim.roma.refiner.<s>` and, at scale 16 of the coarse pass,
+`gim.roma.match_decoder` (GP, `TransformerDecoder`, `cls_to_flow_refine`).
+
 Parameter names are the reference checkpoint's (`encoder.cnn.layers.
 {idx}`, `decoder.conv_refiner.{s}...`, `decoder.gps.16.pos_conv`,
 `decoder.proj.{s}.{0,1}`, `decoder.embedding_decoder.blocks.{i}...`); the
@@ -49,6 +55,7 @@ from gim_tpu_torch.models.dkm.blocks import (GP, ConvRefiner, coords_grid,
                                              resize_nhwc, resize_region_nhwc)
 from gim_tpu_torch.ops.resize import nearest_indices
 from gim_tpu_torch.utils.device import torch_dtype
+from gim_tpu_torch.utils.profiling import span
 
 ROMA_REFINER_SPECS = {
     # scale: (in_dim, hidden_dim, disp_emb_dim, radius)  ref roma.py:1144-1213
@@ -61,6 +68,10 @@ ROMA_REFINER_SPECS = {
 
 PROJ_SPECS = {"16": (1024, 512), "8": (512, 512), "4": (256, 256),
               "2": (128, 64), "1": (64, 9)}
+
+# the decoder's spans: one scale of its loop, and the refiner at it
+SCALE_SPANS = {s: f"gim.roma.scale.{s}" for s in ROMA_REFINER_SPECS}
+REFINER_SPANS = {s: f"gim.roma.refiner.{s}" for s in ROMA_REFINER_SPECS}
 
 # torchvision vgg19_bn features up to conv4_4's ReLU (index 38)
 _VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -85,6 +96,7 @@ class VGG19(nn.Module):
                 cin = v
         self.layers = nn.Sequential(*layers)
 
+    @span("gim.roma.vgg")
     def forward(self, x: torch.Tensor) -> dict[int, torch.Tensor]:
         dt = self.dtype
         x = x.to(dt)
@@ -132,6 +144,13 @@ class TransformerDecoder(nn.Module):
         return out[..., :-1], out[..., -1:]
 
 
+def pick_anchors(probs: torch.Tensor) -> torch.Tensor:
+    """Each pixel's anchor: the argmax over the classes, first index on
+    ties. Looked up by `cls_to_flow_refine` at call time, so a caller can
+    read the anchors the coarse pass picked (the benchmark's judge does)."""
+    return probs.argmax(dim=-1)
+
+
 def cls_to_flow_refine(cls_logits: torch.Tensor,
                        mode: torch.Tensor | None = None) -> torch.Tensor:
     """Anchor classifier -> flow: argmax (first index on ties) and its
@@ -148,7 +167,7 @@ def cls_to_flow_refine(cls_logits: torch.Tensor,
     G = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)      # (C, 2)
     probs = torch.softmax(cls_logits, dim=-1)
     if mode is None:
-        mode = probs.argmax(dim=-1)
+        mode = pick_anchors(probs)
     idx = torch.stack([mode - 1, mode, mode + 1, mode - res, mode + res],
                       dim=-1).clamp(0, C - 1)
     neigh = probs.gather(-1, idx)                                  # (.., 5)
@@ -178,6 +197,7 @@ class RoMaDecoder(nn.Module):
                            train_mode=train_mode)
             for s, (i, h, e, r) in ROMA_REFINER_SPECS.items()})
 
+    @span("gim.roma.decoder")
     def forward(self, f1: dict, f2: dict, upsample: bool = False,
                 flow: torch.Tensor | None = None,
                 certainty: torch.Tensor | None = None,
@@ -204,35 +224,43 @@ class RoMaDecoder(nn.Module):
         out = {}
         refine_init = 4
         for s in scales:
-            ins = int(s)
-            proj = self.proj[s]
-            train = self.train_mode
-            f1_s = batchnorm(proj[1], conv(proj[0], f1[ins], dt), dt, train)
-            f2_s = batchnorm(proj[1], conv(proj[0], f2[ins], dt), dt, train)
-            if ins == 16 and not upsample:
-                gp_post = self.gps["16"](_nhwc(f1_s), _nhwc(f2_s))
-                cls_logits, certainty = self.embedding_decoder(gp_post,
-                                                               _nhwc(f1_s))
-                flow = cls_to_flow_refine(cls_logits).detach()
-                out[ins] = {"gm_cls": cls_logits, "gm_certainty": certainty}
-            else:
-                out[ins] = {}
-            refiner = functools.partial(self.conv_refiner[s],
-                                        emb_scale=40.0 / 32.0 * scale_factor)
-            if train:
-                delta_cert, disp = recomputed(refiner, f1_s, f2_s, flow)
-            else:
-                delta_cert, disp = refiner(f1_s, f2_s, flow)
-            displacement = torch.stack([
-                ins * disp[..., 0] / (refine_init * W),
-                ins * disp[..., 1] / (refine_init * H)], dim=-1)
-            flow = flow + displacement
-            certainty = certainty + delta_cert
-            out[ins].update({"certainty": certainty, "flow": flow})
-            if s != "1":
-                nxt = sizes[ins // 2]
-                flow = resize_nhwc(flow, *nxt).detach()
-                certainty = resize_nhwc(certainty, *nxt).detach()
+            with span(SCALE_SPANS[s]):
+                ins = int(s)
+                proj = self.proj[s]
+                train = self.train_mode
+                f1_s = batchnorm(proj[1], conv(proj[0], f1[ins], dt), dt,
+                                 train)
+                f2_s = batchnorm(proj[1], conv(proj[0], f2[ins], dt), dt,
+                                 train)
+                if ins == 16 and not upsample:
+                    with span("gim.roma.match_decoder"):
+                        gp_post = self.gps["16"](_nhwc(f1_s), _nhwc(f2_s))
+                        cls_logits, certainty = self.embedding_decoder(
+                            gp_post, _nhwc(f1_s))
+                        flow = cls_to_flow_refine(cls_logits).detach()
+                    out[ins] = {"gm_cls": cls_logits,
+                                "gm_certainty": certainty}
+                else:
+                    out[ins] = {}
+                refiner = functools.partial(self.conv_refiner[s],
+                                            emb_scale=40.0 / 32.0
+                                            * scale_factor)
+                with span(REFINER_SPANS[s]):
+                    if train:
+                        delta_cert, disp = recomputed(refiner, f1_s, f2_s,
+                                                      flow)
+                    else:
+                        delta_cert, disp = refiner(f1_s, f2_s, flow)
+                displacement = torch.stack([
+                    ins * disp[..., 0] / (refine_init * W),
+                    ins * disp[..., 1] / (refine_init * H)], dim=-1)
+                flow = flow + displacement
+                certainty = certainty + delta_cert
+                out[ins].update({"certainty": certainty, "flow": flow})
+                if s != "1":
+                    nxt = sizes[ins // 2]
+                    flow = resize_nhwc(flow, *nxt).detach()
+                    certainty = resize_nhwc(certainty, *nxt).detach()
         return out
 
 
@@ -254,7 +282,7 @@ class RoMaMatcher(nn.Module):
         x = torch.cat([q, s], dim=0)
         feats = self.encoder["cnn"](x)
         if not upsample:
-            with torch.no_grad():                       # the frozen trunk
+            with torch.no_grad(), span("gim.roma.dinov2"):  # frozen trunk
                 tokens = self.dinov2(x)                 # (2B, hp wp, 1024)
             B2, _, H, W = x.shape
             feats[16] = tokens.reshape(B2, H // 14, W // 14, -1).permute(

@@ -24,7 +24,8 @@ split pass writes K and V in TF32 parts (twice their size).
 softmax of `ops.attention.sdpa`) only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises. On both it is forward only
 (`forward_only.py`): a backward through it raises. `LAUNCHES` counts the
-launches.
+launches, and the span `gim.flash_attention` (`utils/profiling.span`)
+marks each: the plain version on the CPU enters none.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 from gim_tpu_torch.ops.attention import sdpa
 from gim_tpu_torch.ops.kernels.build import load_library
 from gim_tpu_torch.ops.kernels.forward_only import forward_only
+from gim_tpu_torch.utils.profiling import span
 
 HEAD_DIMS = (64, 128)
 ALIGN = 16            # bytes: bases and strides (TMA, 16-byte loads)
@@ -123,6 +125,11 @@ def _flash_sdpa(q, k, v):
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
+    with span("gim.flash_attention"):
+        return _launch(q, k, v)
+
+
+def _launch(q, k, v):
     (B, H, N, D), strides = kernel_args(q, k, v)
     buf = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     strides += [N * H * D, D, H * D]
