@@ -48,7 +48,11 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    views as the library yardstick (the port never calls it); then K3's
    float32 kernel (3xTF32) at those two shapes against its plain version
    at TOL_ATTN_F32, timed beside SDPA in float32 (TF32 off), its floor and
-   its FP32-FMA figure;
+   its FP32-FMA figure; then its masked variant (LightGlue's attention)
+   against its plain version at TOL_ATTN_F32 on ragged, Nq != Nk, D = 128,
+   no-valid-key and maskless cases, and at LightGlue's (1, 4, 2048, 64)
+   and (16, 4, 2048, 64) with 5 % of the keys invalid, timed beside its
+   plain version, its floor and SDPA in float32 with the same mask;
 8. main path of gim_roma: `Matcher("gim_roma")` at full width (DINOv2
    ViT-L/14, VGG19-bn, GP, 5-block decoder, five ConvRefiners, 672 ->
    1344 px, 5000 balanced samples) at the operating point (bf16,
@@ -83,16 +87,17 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    float32 with TF32 off: one warm-up and 3 timed calls of 1 pair of 840^2
    canvases with 840 x 630 content masks, then 3 timed calls at ZEB's
    sweep batch of 16 (or the largest batch that fits); ms per pair,
-   pairs/s, peak memory, stage times and a profile; no launch of K1, K2 or
-   K3 asserted (the path runs none);
+   pairs/s, peak memory, stage times and a profile; 36 launches a call of
+   K3's masked variant asserted (LightGlue's attention), none of K1, K2 or
+   K3 itself;
 15. gim_lightglue on the card against the CPU, same weights, inputs and
    pad uniforms, full depth at 320 px and 256 keypoints, filter threshold
    0, float32, TF32 off: keypoints and valid flags, log-assignment and
-   matches agree;
+   matches agree; the card's call makes 36 masked flash launches;
 16. the ZEB path of gim_lightglue: `eval.zeb.evaluate` on 16 in-memory
    840^2 pairs at the batch phase 14 settled on, filter threshold 0, the
    MAGSAC preset; ms per pair split into match and pair_metrics; the dump
-   read back;
+   read back; 36 masked flash launches a match call, no other kernel;
 17. gim_loftr's training step (the training CLI's `Trainer`, float32, TF32
    off, 1024 fine slots, `fused_matching=True` in the config, which
    training bypasses) on one 840^2 pair whose image 1 is image 0 with its
@@ -126,7 +131,8 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    deterministic mode) equals the uninterrupted run bit for bit, losses
    and state, for every head, with no deterministic-mode warning naming
    `grid_sampler_2d_backward`; `Matcher.from_checkpoint` loads the result;
-25. K1, K2 and K3 on the card with inputs that need a gradient: forward
+25. K1, K2, K3 and K3's masked variant on the card with inputs that need
+   a gradient: forward
    against the plain version, and a backward that raises;
 26. the sampling backward (`ops.sampling.BilinearSample`) on the inputs of
    one gim_dkm step at 672^2 (local correlation, warps) and one
@@ -194,7 +200,9 @@ from phase 4) and their `_f32` (phase 3, launches from phase 13);
 `refiner_block` and `flash_attention` (bf16: times from phases 6 and 7,
 launches from phases 8 and 10); `refiner_block_f32` and
 `flash_attention_f32` (float32: times from phases 6 and 7, launches from
-phase 31).
+phase 31); `lightglue_attention` (K3's masked variant: times from phase 7
+at the ZEB sweep's batch of 16, with `batch1_*` keys at batch 1; launches
+a call from phase 14).
 Exits nonzero without a result when CUDA is not available or the package
 is not beside the script.
 """
@@ -241,6 +249,11 @@ REFINER_SHAPES = ((2, 144, 336, 336), (2, 24, 672, 672), (2, 144, 672, 672),
 # K3: (G, N, D) and launches per call -- DINOv2 ViT-L (2 images x 16 heads,
 # 48^2 + 1 tokens) and the coordinate decoder (2 x 8 heads, 48^2 tokens)
 FLASH_SHAPES = (((32, 2305, 64), 24), ((16, 2304, 128), 5))
+# K3 f32's masked variant at LightGlue's attention: (B, H, N, D) at batch
+# 1 and 16 (2048 keypoint slots, 4 heads of 64), 36 launches a call (9
+# layers x 2 self + 2 cross directions), about 5 % of the slots invalid
+LG_ATTN_SHAPES = ((1, 4, 2048, 64), (16, 4, 2048, 64))
+LG_ATTN_PER_CALL, LG_ATTN_INVALID = 36, 0.05
 ROMA_IMG = 672
 ROMA_K2_PER_CALL = 4 * HIDDEN_BLOCKS
 # gim_dkm at the operating point: hidden blocks 144 (scale 2) and 24
@@ -1346,6 +1359,7 @@ class Smoke:
                 assert torch.allclose(got, want, rtol=TOL_ATTN_F32,
                                       atol=TOL_ATTN_F32), (N, D)
         self.flash_f32_full(qkv)
+        self.flash_masked_vs_plain()
 
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         max_err = 0.0
@@ -1456,6 +1470,111 @@ class Smoke:
             "launches": 0, "max_abs_err": max_err, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations", "library_ms": tot["library_ms"]}
+
+    def flash_masked_vs_plain(self):
+        """K3 f32's masked variant (LightGlue's attention) against its plain
+        version at TOL_ATTN_F32: ragged edges, Nq != Nk, both head dims,
+        invalid keys and queries, a batch item with no valid key (rows
+        exactly 0), masks left out; then at LG_ATTN_SHAPES with
+        LG_ATTN_INVALID of the keys invalid, on the views LightGlue hands
+        it, timed against its plain version, its floor (three TF32 products
+        of 4 B H N^2 D FLOP) and `F.scaled_dot_product_attention` in
+        float32 with the same mask (TF32 off; the yardstick only, the port
+        never calls it). Writes the `lightglue_attention` entry: one call
+        (LG_ATTN_PER_CALL launches) at batch 16 under the keys every kernel
+        has, at batch 1 under `batch1_*`."""
+        import torch
+        import torch.nn.functional as F
+
+        from gim_tpu_torch.ops.kernels import flash as K
+
+        dev = torch.device(self.dev)
+        g = torch.Generator(device=dev).manual_seed(20)
+
+        def views(B, H, Nq, Nk, D, invalid):
+            """q, k, v as LightGlue's cross attention hands them: (B, H, N,
+            D) views of a projection's (B, N, H D) rows; masks with
+            `invalid` of the slots off (the last 1 % and random ones)."""
+            def rows(N, s):
+                t = torch.randn(B, N, H * D, device=dev, generator=g) * s
+                return t.unflatten(-1, (H, D)).transpose(1, 2)
+
+            def mask(N):
+                m = torch.rand(B, N, device=dev, generator=g) >= invalid
+                m[:, N - max(1, N // 100):] = False
+                return m.contiguous()
+            return (rows(Nq, 2.0), rows(Nk, 1.0), rows(Nk, 1.0), mask(Nq),
+                    mask(Nk))
+
+        def check(label, q, k, v, qv, kv):
+            got = K.flash_sdpa_masked(q, k, v, qv, kv)
+            want = K.flash_sdpa_masked_plain(q, k, v, qv, kv)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            B = q.shape[0]
+            qk = (torch.ones(B, q.shape[2], dtype=torch.bool, device=dev)
+                  if qv is None else qv)
+            if kv is not None:
+                qk = qk & kv.any(-1, keepdim=True)
+            zero = bool((got.transpose(1, 2)[~qk] == 0).all())
+            print(f"  f32 masked {label}: max abs err {err:.3e} (limit "
+                  f"{TOL_ATTN_F32} + {TOL_ATTN_F32} |plain|), dropped rows "
+                  f"exactly 0: {zero}")
+            assert torch.allclose(got, want, rtol=TOL_ATTN_F32,
+                                  atol=TOL_ATTN_F32) and zero, label
+            return err
+
+        max_err = 0.0
+        for B, H, Nq, Nk, D in ((2, 3, 157, 157, 64), (2, 3, 100, 261, 64),
+                                (1, 2, 130, 77, 128), (1, 1, 1, 33, 64)):
+            q, k, v, qv, kv = views(B, H, Nq, Nk, D, 0.1)
+            label = f"({B}, {H}, {Nq}, {D}) x {Nk} keys"
+            max_err = max(max_err, check(label, q, k, v, qv, kv))
+            if B == 2 and Nq == Nk:
+                kv[1] = False
+                qv[0, :40] = False
+                check(label + ", item 1 no valid key", q, k, v, qv, kv)
+                check(label + ", masks None", q, k, v, None, None)
+
+        tot = {}
+        for B, H, N, D in LG_ATTN_SHAPES:
+            q, k, v, qv, kv = views(B, H, N, N, D, LG_ATTN_INVALID)
+            label = (f"({B}, {H}, {N}, {D}), "
+                     f"{float(1 - kv.float().mean()):.3f} of keys invalid")
+            max_err = max(max_err, check(label, q, k, v, qv, kv))
+            # the launches straight through the C entry, buffers made once:
+            # at batch 1 the wrapper's host time (about 50 us a call) is
+            # close to the kernel's and would be timed in its place
+            shape, strides = K.masked_args(q, k, v, qv, kv)
+            lib = K._lib()
+            _, args = K.masked_launch(q, k, v, qv, kv, shape, strides)
+            t_k = cuda_ms(lambda: lib.flash_attention_masked(*args), 10)
+            t_p = cuda_ms(lambda: K.flash_sdpa_masked_plain(q, k, v, qv, kv),
+                          10)
+            mask = qv[:, None, :, None] & kv[:, None, None, :]
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), 10)
+            b_ms = 3 * 4.0 * B * H * N * N * D / PEAK_TF32_FLOPS * 1e3
+            print(f"    kernel {t_k:.4f} ms ({t_k / b_ms:.2f}x its floor "
+                  f"{b_ms:.4f} ms (operations), {t_k / t_l:.3f}x "
+                  f"F.scaled_dot_product_attention {t_l:.4f} ms), plain "
+                  f"{t_p:.4f} ms [{self.card}]")
+            n = LG_ATTN_PER_CALL
+            tot[B] = dict(ms=n * t_k, plain_ms=n * t_p, library_ms=n * t_l,
+                          bound_ms=n * b_ms)
+            print(f"  per LightGlue call at batch {B} ({n} launches): kernel "
+                  f"{n * t_k:.3f} ms, floor {n * b_ms:.3f} ms, plain "
+                  f"{n * t_p:.3f} ms, library {n * t_l:.3f} ms "
+                  f"[{self.card}]")
+        main = LG_ATTN_SHAPES[-1][0]
+        self.kernels.setdefault("lightglue_attention", {}).update({
+            "name": "lightglue_attention", "route": "cuda",
+            "source": "gim_tpu_torch/csrc/flash.cu",
+            "replaces": "none (the JAX package's XLA products)",
+            "max_abs_err": max_err, "bound_by": "operations",
+            "batch": main, **tot[main],
+            **{f"batch{b}_{key}": val for b, d in tot.items() if b != main
+               for key, val in d.items()}})
 
     # -- 8 ------------------------------------------------------------------
     def roma_main_path(self):
@@ -2081,7 +2200,11 @@ class Smoke:
                                         f" (not {LG_BATCH}: out of memory)"))
         counts = self.kernel_counts()
         print(f"  main path: {calls} match calls; kernel launches {counts}")
-        assert not any(counts.values()), counts
+        want = dict.fromkeys(counts, 0)
+        want["lightglue_attention"] = LG_ATTN_PER_CALL * calls
+        assert counts == want, counts
+        self.kernels.setdefault("lightglue_attention", {})["launches"] = \
+            LG_ATTN_PER_CALL
         self.lightglue_stages(m, small[1], "one call at batch 1")
         self.lightglue_stages(m, big[1], f"one call at batch {B}")
         self.profile(lambda: m.match(*small[2]))
@@ -2148,7 +2271,10 @@ class Smoke:
             return ([{k: v.cpu() for k, v in q.items()} for q in p],
                     {k: v.cpu() for k, v in out.items()})
 
+        before = self.kernel_counts()["lightglue_attention"]
         (c0, c1), co = run(card.model, self.dev)
+        ran = self.kernel_counts()["lightglue_attention"] - before
+        assert ran == LG_ATTN_PER_CALL, ran
         (h0, h1), ho = run(cpu.model, "cpu")
         same = [(a["keypoints"] == b["keypoints"]).all(-1)
                 & (a["valid"] == b["valid"]) for a, b in ((c0, h0), (c1, h1))]
@@ -2169,7 +2295,8 @@ class Smoke:
               f"slots (limit {LG_AGREE}); log-assignment max diff {la:.2e} "
               f"where they agree (limit {LG_TOL}); matches0 equal on "
               f"{m_agree:.4f} of valid slots (limit {LG_AGREE}); "
-              f"{n_match} matches on the CPU")
+              f"{n_match} matches on the CPU; the card's attention on the "
+              f"masked flash kernel ({ran} launches)")
         assert share >= LG_AGREE and la <= LG_TOL and m_agree >= LG_AGREE
         assert n_match > 0 and int(v.sum()) > 0
 
@@ -2195,8 +2322,11 @@ class Smoke:
         batches = [stack_batches(pairs[i:i + B])
                    for i in range(0, LG_ZEB_PAIRS, B)]
         match_s = []
+        calls = 0
 
         def match(batch):
+            nonlocal calls
+            calls += 1
             t0 = time.perf_counter()
             r = m.match(*(batch[k] for k in ("color0", "color1", "scale0",
                                              "scale1", "mask0", "mask1")))
@@ -2216,7 +2346,9 @@ class Smoke:
         total = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
         counts = self.kernel_counts()
-        assert not any(counts.values()), counts
+        want = dict.fromkeys(counts, 0)
+        want["lightglue_attention"] = LG_ATTN_PER_CALL * calls
+        assert counts == want, counts
         n = len(rows)
         match_ms = sum(match_s) * 1e3
         print(f"  gim_lightglue f32, threshold 0, {n} pairs of "
@@ -2225,8 +2357,9 @@ class Smoke:
               f"pair, of which match {match_ms / n:.2f} ms and pair_metrics "
               f"(with the host copies of the rows) "
               f"{(total - match_ms) / n:.2f} ms; {n / (total / 1e3):.3f} "
-              f"pairs/s; peak memory {peak / 2**30:.2f} GiB; no kernel "
-              f"launch [{self.card}]")
+              f"pairs/s; peak memory {peak / 2**30:.2f} GiB; "
+              f"{LG_ATTN_PER_CALL} masked flash launches a call, no other "
+              f"kernel [{self.card}]")
         n_valid = [len(r["epi_errs"]) for r in rows]
         with tempfile.TemporaryDirectory() as d:
             path = E.write_dump(rows, d, "gim_lightglue", "ZEB-memory",
@@ -2865,8 +2998,9 @@ class Smoke:
             assert not any("grid_sampler" in n for n in notes), notes
 
     def kernels_refuse_backward(self):
-        """Phase 25: K1 (dual_softmax_mutual), K2 (fused_dw_block) and K3
-        (flash_sdpa) on the card with inputs that require a gradient: the
+        """Phase 25: K1 (dual_softmax_mutual), K2 (fused_dw_block), K3
+        (flash_sdpa) and its masked variant (flash_sdpa_masked) on the card
+        with inputs that require a gradient: the
         forward agrees with the plain version (K1: indices on >= 99.9 % of
         rows and conf within TOL_F32; K2, K3 within TOL_F32 and
         TOL_ATTN_F32 of the largest magnitude) and `.backward()` raises
@@ -2898,6 +3032,12 @@ class Smoke:
             "flash_attention": (flash.flash_sdpa, flash.flash_sdpa_plain,
                                 (rand(2, 8, 577, 64), rand(2, 8, 577, 64),
                                  rand(2, 8, 577, 64)), ()),
+            "lightglue_attention": (
+                flash.flash_sdpa_masked, flash.flash_sdpa_masked_plain,
+                (rand(2, 4, 300, 64), rand(2, 4, 310, 64),
+                 rand(2, 4, 310, 64)),
+                (torch.rand(2, 300, device=dev, generator=g) > 0.1,
+                 torch.rand(2, 310, device=dev, generator=g) > 0.1)),
         }
         for name, (kernel, plain, tensors, rest) in cases.items():
             with torch.enable_grad():
@@ -3844,6 +3984,8 @@ class Smoke:
             dkm_blocks.fused_dw_block, dinov2.flash_sdpa = k2, k3
             roma_model.cls_to_flow_refine = cls_fn
         got = {**refiner.LAUNCHES, **flash.LAUNCHES}
+        # LightGlue's masked variant is on neither dense head's path
+        assert got.pop("lightglue_attention") == 0, got
         assert set(seen) <= {(k, torch.float32) for k in got}, seen
         assert {k: seen[(k, torch.float32)] for k in got} == got, (seen, got)
         for k, n in got.items():

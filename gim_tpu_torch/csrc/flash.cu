@@ -88,6 +88,36 @@
 // TF32 products of 4 G N^2 D FLOP at 495 TFLOP/s (about 7.6 ms; exps
 // and bytes are far below it), and the FP32-FMA figure, 4 G N^2 D FLOP
 // at 66.9 TFLOP/s (about 18.9 ms).
+//
+// Masked float32 variant (LightGlue's self and cross attention,
+// `flash_attention_masked`). It replaces no TPU kernel: the JAX package
+// runs LightGlue's attention as plain products in XLA. It was added
+// because the port's plain products wrote every (B, 4, 2048, 2048) score
+// map to device memory and passed over it 4-6 times (scale, masked fill,
+// softmax, nan_to_num, a second SGEMM), which made LightGlue's attention
+// the largest block of device time in both gim_lightglue cells. Same
+// template as the float32 kernel above, with MASK set:
+//   - q is (B, H, Nq, D), k and v (B, H, Nk, D), Nq and Nk free; the
+//     scale is 1 / sqrt(D), as above (the cross attention's D^-1/4 on
+//     each side multiplies to it);
+//   - the split pass also packs the key-validity mask (B, Nk) into one
+//     bit a key, a word per 32 keys of a tile (__ballot_sync), after the
+//     split tiles in the scratch buffer; the main kernel reads a tile's
+//     words beside its products and sets invalid keys' scores to -1e30,
+//     as the tail columns (keys past Nk are invalid bits);
+//   - a row whose query is invalid, or whose batch item has no valid key,
+//     is written as 0 (what the plain version's -inf fill and nan_to_num
+//     give); other rows are the softmax over the valid keys.
+// What bounds it: the three TF32 products of 4 B H Nq Nk D FLOP at 495
+// TFLOP/s (0.026 ms at (1, 4, 2048, 64), 0.42 ms at (16, 4, 2048, 64)).
+// The batch-1 wave: (1, 4, 2048, 64) is 4 x 32 blocks of 64 query rows,
+// one warpgroup on each of 128 of the 132 SMs, so each SM's tensor cores
+// wait on one block's loads and softmax (2.8x the floor, against 1.7x at
+// batch 16, three blocks an SM). The tiling is the float32 kernel's all
+// the same: splitting each block's keys over three warpgroups saved 0.016
+// ms a launch, but batch 1 is the demo's and hloc's single pair, whose
+// pace the host's dispatch sets (PERF.md section 6), where it moved
+// nothing end to end.
 
 #include <cuda_bf16.h>
 
@@ -488,6 +518,18 @@ struct F32Tiles {
   static constexpr bool Q_SPLIT = D == 64;
   static constexpr int SG = 4;
   static constexpr int BLOCKS = D == 64 ? 3 : 1;   // per SM
+  // the masked variant: key-validity words a tile
+  static constexpr int WORDS = (BK + 31) / 32;
+};
+
+// The masked variant's masks (null pointers in the unmasked one): the
+// queries' and keys' validity, (B, Nq) and (B, Nk) bytes, 1 = valid (a
+// null pointer: all valid), and the key bits the split pass packs, WORDS
+// a tile, tile j of batch item b at (b n_tiles + j) WORDS.
+struct Masks {
+  const unsigned char* q_valid;
+  const unsigned char* k_valid;
+  unsigned* k_bits;
 };
 
 // S's key order within each group of 8: the n-th column of S is key
@@ -501,17 +543,31 @@ __device__ __forceinline__ int key_row(int k) {
 
 // The split pass: one block per (tile of BK keys, head, K or V) writes the
 // tile's two parts, hi and lo, into the scratch buffer (tile j of head
-// b H + h at (b H + h) n_tiles + j). Keys at or past N are zeros.
-template <int D>
+// b H + h at (b H + h) n_tiles + j). Keys at or past N are zeros. With
+// MASK, the K blocks of head 0 also write the tile's key bits (Masks).
+template <int D, bool MASK>
 __global__ void __launch_bounds__(THREADS_F32)
 flash_split_f32(const float* __restrict__ k, const float* __restrict__ v,
-                float* __restrict__ scratch, Strides st, int H, int N) {
+                float* __restrict__ scratch, Strides st, int H, int N,
+                Masks mk) {
   using T = F32Tiles<D>;
   constexpr int V4 = D / 4;
   const int j = blockIdx.x, bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   char* tile = reinterpret_cast<char*>(
       scratch + ((size_t)bh * gridDim.x + j) * T::TILE);
+  if constexpr (MASK) {
+    // bit r of word w: key 32 w + r of the tile is below N and valid
+    if (blockIdx.z == 0 && h == 0 && threadIdx.x < 32 * T::WORDS) {
+      const int r = threadIdx.x, key = j * T::BK + r;
+      const bool ok = r < T::BK && key < N
+                      && (mk.k_valid == nullptr
+                          || mk.k_valid[(size_t)b * N + key] != 0);
+      const unsigned word = __ballot_sync(0xffffffffu, ok);
+      if (r % 32 == 0)
+        mk.k_bits[((size_t)b * gridDim.x + j) * T::WORDS + r / 32] = word;
+    }
+  }
   if (blockIdx.z == 0) {
     // consecutive threads take consecutive keys of one group of 4
     // columns: every store is a core-matrix row
@@ -552,11 +608,12 @@ flash_split_f32(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
-template <int D>
+template <int D, bool MASK>
 __global__ void __launch_bounds__(THREADS_F32, F32Tiles<D>::BLOCKS)
 flash_f32_kernel(const float* __restrict__ q,
                  const float* __restrict__ scratch, float* __restrict__ o,
-                 Strides st, int H, int N, int n_tiles, float scale) {
+                 Strides st, int H, int N, int n_tiles, float scale,
+                 Masks mk) {
   using T = F32Tiles<D>;
   constexpr int BK = T::BK, LD = T::LD, NB = BK / 8, DT = D / 8;
   constexpr int SG = T::SG;
@@ -618,9 +675,19 @@ flash_f32_kernel(const float* __restrict__ q,
   float acc[D / 2];                 // O: 64 x D over the warpgroup
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  unsigned any_key = 0;             // MASK: the OR of the tiles' key bits
 
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % T::STAGES;
+    // MASK: the tile's key bits, read while its products run
+    unsigned kw[T::WORDS];
+    if constexpr (MASK) {
+#pragma unroll
+      for (int w = 0; w < T::WORDS; ++w) {
+        kw[w] = __ldg(mk.k_bits + ((size_t)b * n_tiles + j) * T::WORDS + w);
+        any_key |= kw[w];
+      }
+    }
     mbar_wait(full + 8 * s, (j / T::STAGES) & 1);
     // Q's splits stay inside the loop: hoisted, those of all DT k-steps
     // (128 registers at D = 128) spilled
@@ -668,14 +735,19 @@ flash_f32_kernel(const float* __restrict__ q,
     }
 
     // online softmax in the log2 domain: the running max m holds scores
-    // times scale log2 e; key columns past N read -1e30 (the last tile).
-    // Register i of S is row g + 8 ((i >> 1) & 1) of the warp's 16, key
-    // 8 (i / 4) + t + 4 (i & 1) of the tile (key_row)
-    const bool tail = (j + 1) * BK > N;
+    // times scale log2 e; key columns past N (MASK: whose bit is 0) read
+    // -1e30. Register i of S is row g + 8 ((i >> 1) & 1) of the warp's 16,
+    // key 8 (i / 4) + t + 4 (i & 1) of the tile (key_row)
+    const bool tail = !MASK && (j + 1) * BK > N;
     float tmax[2] = {NEG, NEG};
 #pragma unroll
     for (int i = 0; i < 4 * NB; ++i) {
-      if (tail && j * BK + 8 * (i / 4) + t + 4 * (i & 1) >= N) s_[i] = NEG;
+      const int kt = 8 * (i / 4) + t + 4 * (i & 1);
+      if constexpr (MASK) {
+        if (!((kw[kt / 32] >> (kt % 32)) & 1u)) s_[i] = NEG;
+      } else {
+        if (tail && j * BK + kt >= N) s_[i] = NEG;
+      }
       tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s_[i]);
     }
     float alpha[2];
@@ -737,7 +809,8 @@ flash_f32_kernel(const float* __restrict__ q,
     if (tid == 0 && j + T::STAGES < n_tiles) load(j + T::STAGES);  // refill
   }
 
-  // full row sums across the four lanes of a row, then o = acc / l
+  // full row sums across the four lanes of a row, then o = acc / l;
+  // MASK: 0 in rows whose query is invalid or which have no valid key
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -748,15 +821,30 @@ flash_f32_kernel(const float* __restrict__ q,
   }
   float* ob = o + b * st.o[0] + h * st.o[1];
   const int r0 = q0 + 16 * warp + g;
+  bool keep[2] = {true, true};
+  if constexpr (MASK) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      keep[r] = any_key != 0 && row < N
+                && (mk.q_valid == nullptr
+                    || mk.q_valid[(size_t)b * N + row] != 0);
+      if (!keep[r]) inv[r] = 0.f;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
     const int col = 8 * n + 2 * t;
+    float2 v0 = make_float2(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+    float2 v1 = make_float2(acc[4 * n + 2] * inv[1], acc[4 * n + 3] * inv[1]);
+    if constexpr (MASK) {
+      if (!keep[0]) v0 = make_float2(0.f, 0.f);
+      if (!keep[1]) v1 = make_float2(0.f, 0.f);
+    }
     if (r0 < N)
-      *reinterpret_cast<float2*>(ob + r0 * st.o[2] + col) =
-          make_float2(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+      *reinterpret_cast<float2*>(ob + r0 * st.o[2] + col) = v0;
     if (r0 + 8 < N)
-      *reinterpret_cast<float2*>(ob + (r0 + 8) * st.o[2] + col) =
-          make_float2(acc[4 * n + 2] * inv[1], acc[4 * n + 3] * inv[1]);
+      *reinterpret_cast<float2*>(ob + (r0 + 8) * st.o[2] + col) = v1;
   }
 }
 
@@ -836,17 +924,51 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
     using T = F32Tiles<D>;
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     const int n_tiles = (N + T::BK - 1) / T::BK;
-    flash_split_f32<D><<<dim3(n_tiles, B * H, 2), THREADS_F32, 0, stream>>>(
-        (const float*)k, (const float*)v, (float*)scratch, st, H, N);
+    flash_split_f32<D, false>
+        <<<dim3(n_tiles, B * H, 2), THREADS_F32, 0, stream>>>(
+            (const float*)k, (const float*)v, (float*)scratch, st, H, N,
+            Masks{});
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = prepare(flash_f32_kernel<D>, T::BYTES);
+    err = prepare(flash_f32_kernel<D, false>, T::BYTES);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((N + BQ_F32 - 1) / BQ_F32, B * H);
-    flash_f32_kernel<D><<<grid, THREADS_F32, T::BYTES, stream>>>(
+    flash_f32_kernel<D, false><<<grid, THREADS_F32, T::BYTES, stream>>>(
         (const float*)q, (const float*)scratch, (float*)o, st, H, N, n_tiles,
-        scale);
+        scale, Masks{});
   }
+  return (int)cudaGetLastError();
+}
+
+// Split tiles of the masked variant, then the key bits (Masks), in bytes.
+template <int D>
+long long masked_scratch_bytes(int B, int H, int Nk) {
+  using T = F32Tiles<D>;
+  const long long n_tiles = (Nk + T::BK - 1) / T::BK;
+  const long long bits = ((long long)B * n_tiles * T::WORDS * 4 + 15) / 16 * 16;
+  return (long long)B * H * n_tiles * T::TILE * 4 + bits;
+}
+
+template <int D>
+int launch_masked(const float* q, const float* k, const float* v,
+                  const unsigned char* q_valid, const unsigned char* k_valid,
+                  float* o, void* scratch, int B, int H, int Nq, int Nk,
+                  const Strides& st, cudaStream_t stream) {
+  using T = F32Tiles<D>;
+  const int n_tiles = (Nk + T::BK - 1) / T::BK;
+  float* tiles = (float*)scratch;
+  const Masks mk{q_valid, k_valid,
+                 (unsigned*)(tiles + (size_t)B * H * n_tiles * T::TILE)};
+  flash_split_f32<D, true>
+      <<<dim3(n_tiles, B * H, 2), THREADS_F32, 0, stream>>>(
+          k, v, tiles, st, H, Nk, mk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = prepare(flash_f32_kernel<D, true>, T::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Nq + BQ_F32 - 1) / BQ_F32, B * H);
+  flash_f32_kernel<D, true><<<grid, THREADS_F32, T::BYTES, stream>>>(
+      q, tiles, o, st, H, Nq, n_tiles, 1.f / sqrtf((float)D), mk);
   return (int)cudaGetLastError();
 }
 
@@ -889,4 +1011,53 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   if (D == 128)
     return launch<128>(dtype, q, k, v, o, scratch, B, H, N, st, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The masked float32 variant (LightGlue's attention): q (B, H, Nq, D), k
+// and v (B, H, Nk, D) float32 views under the same rules as above, D in
+// {64, 128}; q_valid (B, Nq) and k_valid (B, Nk) contiguous bytes, 1 =
+// valid (null: all valid); o through its strides. `scratch` holds
+// flash_masked_scratch_bytes(...) bytes, 16-byte aligned. The scale is
+// 1 / sqrt(D). Launches on `device` (the operands' card; the caller's
+// current device is restored) and `stream`. Returns as flash_attention
+// does.
+
+extern "C" long long flash_masked_scratch_bytes(int B, int H, int Nk, int D) {
+  if (B < 1 || H < 1 || Nk < 1) return 0;
+  return D == 64 ? masked_scratch_bytes<64>(B, H, Nk)
+                 : masked_scratch_bytes<128>(B, H, Nk);
+}
+
+extern "C" int flash_attention_masked(const void* q, const void* k,
+                                      const void* v, const void* q_valid,
+                                      const void* k_valid, void* o,
+                                      void* scratch, int B, int H, int Nq,
+                                      int Nk, int D, const long long* strides,
+                                      int device, void* stream) {
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || (long long)B * H > 65535
+      || scratch == nullptr || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* qv = (const unsigned char*)q_valid;
+  const auto* kv = (const unsigned char*)k_valid;
+  const int ret =
+      D == 64 ? launch_masked<64>((const float*)q, (const float*)k,
+                                  (const float*)v, qv, kv, (float*)o, scratch,
+                                  B, H, Nq, Nk, st, s)
+              : launch_masked<128>((const float*)q, (const float*)k,
+                                   (const float*)v, qv, kv, (float*)o,
+                                   scratch, B, H, Nq, Nk, st, s);
+  if (current != device) cudaSetDevice(current);
+  return ret;
 }

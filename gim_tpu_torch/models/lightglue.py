@@ -6,9 +6,18 @@ Fourier rotary position encoding (:46-59), n_layers of SelfBlock
 sigmoid-log-double-softmax assignment with dustbins (:250-281) and the
 mutual filter (:287-304). As in the JAX package, the depth is static (the
 reference's early exit and pruning are off by default, :316-317, and
-`TokenConfidence` is not ported), padded keypoint slots are masked in the
-attention, and attention is plain batched matmuls: the JAX package runs
-these products outside any Pallas kernel.
+`TokenConfidence` is not ported) and padded keypoint slots are masked in the
+attention.
+
+Attention. On card tensors with nothing for autograd to record (inference:
+`api.match_fn` runs under `inference_mode`), each of a layer's four
+attentions (two self, the cross attention's two directions) is one launch
+of the masked float32 flash kernel (`ops/kernels/flash.flash_sdpa_masked`,
+36 a call), which keeps the score maps out of device memory. Elsewhere (the
+CPU, training) it is plain batched matmuls, as the JAX package runs these
+products outside any Pallas kernel: one similarity and a softmax along each
+of its axes in the cross attention. The two are the same mathematics, so no
+switch chooses between them.
 
 Two choices follow the JAX package where it departs from the reference:
 flax's `nn.gelu` is the tanh approximation (the reference's `nn.GELU()`
@@ -28,11 +37,25 @@ import torch.nn as nn
 
 from gim_tpu_torch.config import LightGlueConfig
 from gim_tpu_torch.ops.attention import apply_rotary, sdpa
+from gim_tpu_torch.ops.kernels.flash import flash_sdpa_masked
 from gim_tpu_torch.ops.matching import (filter_matches,
                                         sigmoid_log_double_softmax)
 from gim_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6        # flax nn.LayerNorm's default
+
+
+def on_kernel(x: torch.Tensor) -> bool:
+    """Whether attention runs on the masked flash kernel: card tensors and
+    nothing for autograd to record (the kernel has no backward)."""
+    return x.device.type == "cuda" and not torch.is_grad_enabled()
+
+
+def pair_mask(valid0, valid1):
+    """(B, 1, K0, K1) attention mask of two (B, K) slot masks, or None."""
+    if valid0 is None:
+        return None
+    return valid0[:, None, :, None] & valid1[:, None, None, :]
 
 
 def normalize_keypoints(kpts: torch.Tensor, size: torch.Tensor
@@ -78,21 +101,29 @@ class SelfBlock(nn.Module):
         self.ffn = ffn(dim)
 
     def forward(self, x: torch.Tensor, encoding: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
+                valid: torch.Tensor | None = None) -> torch.Tensor:
         B, K, d = x.shape
+        hd = d // self.heads
         # the reference's unflatten(-1, (heads, head_dim, 3))
-        qkv = self.Wqkv(x).reshape(B, K, self.heads, d // self.heads, 3)
+        qkv = self.Wqkv(x).reshape(B, K, self.heads, hd, 3)
         qkv = qkv.transpose(1, 2)                       # (B, H, K, hd, 3)
         q = apply_rotary(qkv[..., 0], encoding)
         k = apply_rotary(qkv[..., 1], encoding)
-        ctx = sdpa(q, k, qkv[..., 2], mask)             # (B, H, K, hd)
+        if on_kernel(x):
+            # v's stride along hd is 3: the kernel takes unit stride
+            ctx = flash_sdpa_masked(q, k, qkv[..., 2].contiguous(), valid,
+                                    valid)
+        else:
+            ctx = sdpa(q, k, qkv[..., 2], pair_mask(valid, valid))
         msg = self.out_proj(ctx.transpose(1, 2).reshape(B, K, d))
         return x + self.ffn(torch.cat([x, msg], -1))
 
 
 class CrossBlock(nn.Module):
     """`lightglue.py:86-129`: one similarity for both directions, a
-    softmax along each axis, and one FFN shared by both images."""
+    softmax along each axis, and one FFN shared by both images. On the
+    kernel, one launch a direction on the same projections, the masks
+    swapped."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -103,10 +134,10 @@ class CrossBlock(nn.Module):
         self.ffn = ffn(dim)
 
     def forward(self, x0: torch.Tensor, x1: torch.Tensor,
-                mask: torch.Tensor | None = None):
+                valid0: torch.Tensor | None = None,
+                valid1: torch.Tensor | None = None):
         B, _, d = x0.shape
         hd = d // self.heads
-        scale = hd ** -0.25       # the reference scales both sides
 
         def split(t):
             return t.unflatten(-1, (self.heads, hd)).transpose(1, 2)
@@ -114,20 +145,28 @@ class CrossBlock(nn.Module):
         def merge(t):
             return t.transpose(1, 2).flatten(-2)
 
-        qk0 = split(self.to_qk(x0)) * scale
-        qk1 = split(self.to_qk(x1)) * scale
         v0 = split(self.to_v(x0))
         v1 = split(self.to_v(x1))
-        sim = qk0 @ qk1.transpose(-1, -2)               # (B, H, K0, K1)
-        if mask is not None:
-            sim = sim.masked_fill(~mask, float("-inf"))
-        a01 = torch.softmax(sim, dim=-1)
-        a10 = torch.softmax(sim.transpose(-1, -2), dim=-1)
-        m0 = a01 @ v1
-        m1 = a10 @ v0
-        if mask is not None:
-            m0 = torch.nan_to_num(m0)
-            m1 = torch.nan_to_num(m1)
+        if on_kernel(x0):
+            qk0, qk1 = split(self.to_qk(x0)), split(self.to_qk(x1))
+            # the reference's hd^-1/4 on each side is sdpa's hd^-1/2
+            m0 = flash_sdpa_masked(qk0, qk1, v1, valid0, valid1)
+            m1 = flash_sdpa_masked(qk1, qk0, v0, valid1, valid0)
+        else:
+            scale = hd ** -0.25       # the reference scales both sides
+            mask = pair_mask(valid0, valid1)
+            qk0 = split(self.to_qk(x0)) * scale
+            qk1 = split(self.to_qk(x1)) * scale
+            sim = qk0 @ qk1.transpose(-1, -2)           # (B, H, K0, K1)
+            if mask is not None:
+                sim = sim.masked_fill(~mask, float("-inf"))
+            a01 = torch.softmax(sim, dim=-1)
+            a10 = torch.softmax(sim.transpose(-1, -2), dim=-1)
+            m0 = a01 @ v1
+            m1 = a10 @ v0
+            if mask is not None:
+                m0 = torch.nan_to_num(m0)
+                m1 = torch.nan_to_num(m1)
         m0 = self.to_out(merge(m0))
         m1 = self.to_out(merge(m1))
         x0 = x0 + self.ffn(torch.cat([x0, m0], -1))
@@ -143,11 +182,10 @@ class TransformerLayer(nn.Module):
         self.self_attn = SelfBlock(dim, heads)
         self.cross_attn = CrossBlock(dim, heads)
 
-    def forward(self, desc0, desc1, enc0, enc1, smask0=None, smask1=None,
-                xmask=None):
-        desc0 = self.self_attn(desc0, enc0, smask0)
-        desc1 = self.self_attn(desc1, enc1, smask1)
-        return self.cross_attn(desc0, desc1, xmask)
+    def forward(self, desc0, desc1, enc0, enc1, valid0=None, valid1=None):
+        desc0 = self.self_attn(desc0, enc0, valid0)
+        desc1 = self.self_attn(desc1, enc1, valid1)
+        return self.cross_attn(desc0, desc1, valid0, valid1)
 
 
 class MatchAssignment(nn.Module):
@@ -202,15 +240,10 @@ class LightGlue(nn.Module):
             desc0, desc1 = self.input_proj(desc0), self.input_proj(desc1)
         enc0 = self.posenc(normalize_keypoints(kpts0, size0))
         enc1 = self.posenc(normalize_keypoints(kpts1, size1))
-        smask0 = smask1 = xmask = None
-        if valid0 is not None:
-            smask0 = valid0[:, None, :, None] & valid0[:, None, None, :]
-            smask1 = valid1[:, None, :, None] & valid1[:, None, None, :]
-            xmask = valid0[:, None, :, None] & valid1[:, None, None, :]
         for layer in self.transformers:
             with span("gim.lightglue.layer"):
-                desc0, desc1 = layer(desc0, desc1, enc0, enc1, smask0,
-                                     smask1, xmask)
+                desc0, desc1 = layer(desc0, desc1, enc0, enc1, valid0,
+                                     valid1)
         with span("gim.lightglue.assign"):
             scores, _ = self.log_assignment[str(c.n_layers - 1)](
                 desc0, desc1, valid0, valid1)
