@@ -4,7 +4,12 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
-(sm_90a) and PyTorch built for CUDA. Phases, each printing what it found:
+(sm_90a) and PyTorch built for CUDA. The kernels K2, K3 and K3's masked
+variant run where the port's rule (`ops/kernels/forward_only.on_kernel`)
+sends them: card tensors in inference mode, as every match call is; a
+phase that compares them with the plain graph swaps the rule for one
+that answers no (`swapped`).
+Phases, each printing what it found:
 
 1. environment: card name and power limit, torch / CUDA versions, TF32;
 2. build: every kernel of the path, from the sources in the checkout;
@@ -34,11 +39,11 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    plain version at the four main-path shapes of gim_roma and the four of
    gim_dkm in bf16 and on ragged cases (C 40 -> 56, widths 200 and 203;
    192 -> 144) in float32 and bf16, with timings of kernel, plain version
-   and the switches-off block (PyTorch's depthwise conv, BN, ReLU, 1x1
+   and the plain-graph block (PyTorch's depthwise conv, BN, ReLU, 1x1
    conv) beside the bound; then K2's float32 kernel (3xTF32 1x1) on
    float32 edges (one row, one column, 1 x 1, C 7 -> 5, 192 -> 192) and
    at both heads' eight full shapes (C_out = C) against its plain version
-   at TOL_F32, timed beside the float32 switches-off block (TF32 off), its
+   at TOL_F32, timed beside the float32 plain-graph block (TF32 off), its
    floor and its FP32-FMA figure;
 7. kernel K3 (flash_attention) against its plain version on the strided
    q, k, v views of a qkv split at the ViT-L (2, 16, 2305, 64) and
@@ -55,21 +60,22 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    plain version, its floor and SDPA in float32 with the same mask;
 8. main path of gim_roma: `Matcher("gim_roma")` at full width (DINOv2
    ViT-L/14, VGG19-bn, GP, 5-block decoder, five ConvRefiners, 672 ->
-   1344 px, 5000 balanced samples) at the operating point (bf16,
-   GIM_TPU_FUSED_REFINER=1, GIM_TPU_FLASH_VIT=1): one warm-up and 3 timed
-   calls of 1 pair, one call with content masks; 32 K2 and 29 K3 launches
-   asserted per call; stage times and a profile;
-9. gim_roma with both switches on against both off, float32, TF32 off,
-   224 -> 448 px: warp and certainty agree;
+   1344 px, 5000 balanced samples) at the operating point (bf16): one
+   warm-up and 3 timed calls of 1 pair, one call with content masks; 32 K2
+   and 29 K3 launches asserted per call; stage times and a profile;
+9. gim_roma's kernels against its plain graph, float32, TF32 off, 224 ->
+   448 px: 32 K2 and 29 K3 float32 launches, none on the plain graph;
+   warp and certainty agree;
 10. main path of gim_dkm: `Matcher("gim_dkm")` at full width (ResNet-50
    pyramid, GP and DFN at 1/32 and 1/16, five ConvRefiners) at its
-   operating point (bf16, GIM_TPU_FUSED_REFINER=1) on 1 pair of 840 x 840
+   operating point (bf16) on 1 pair of 840 x 840
    canvases with content masks of 840 x 630 (the ZEB protocol: 660 x 880
    -> 1152 x 1536, 5000 balanced samples): one warm-up and 3 timed calls,
    one call without masks (aspect-pad); 32 K2 launches asserted per call;
    stage times and a profile;
-11. gim_dkm with the switch on against off, float32, TF32 off, 240 x 320
-   -> 384 x 512: warp and certainty agree;
+11. gim_dkm's K2 against its plain graph, float32, TF32 off, 240 x 320
+   -> 384 x 512: 32 K2 float32 launches, none on the plain graph; warp and
+   certainty agree;
 12. ZEB geometry on the card: `eval.zeb.pair_metrics` (5-point RANSAC with
    the MAGSAC preset, pose errors) on 4 ground-truth scenes of 8192 slots
    (2000-8192 valid, 30 % and 60 % outliers), against the same call on
@@ -115,14 +121,12 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    deterministic mode); `Matcher.from_checkpoint` loads the result and
    matches a pair; one step under a one-process NCCL group equals the same
    step without a group;
-20-22. the training steps of gim_dkm (672^2, with GIM_TPU_FUSED_REFINER=1,
-   which training bypasses), gim_roma (672^2, full ViT-L/14, switches off;
-   then one step's loss with GIM_TPU_FLASH_VIT=1: 29 K3 launches and a
-   backward that raises `KernelBackwardError`) and gim_lightglue (1024^2,
-   2048 keypoints) through the training CLI's `Trainer` at the JAX CLI's
-   operating points, float32, TF32 off, 20000 labels: 3 warm-up and 5
-   timed steps, ms per step, pairs/s, peak memory, stage times (CUDA
-   events at forward hooks) and a profile; no kernel launch asserted;
+20-22. the training steps of gim_dkm (672^2), gim_roma (672^2, full
+   ViT-L/14) and gim_lightglue (1024^2, 2048 keypoints) through the
+   training CLI's `Trainer` at the JAX CLI's operating points, float32,
+   TF32 off, 20000 labels: 3 warm-up and 5 timed steps, ms per step,
+   pairs/s, peak memory, stage times (CUDA events at forward hooks) and a
+   profile; no kernel launch asserted (a step is never in inference mode);
 23. each of those steps on the card against the CPU at the CPU tests'
    sizes and tolerances (the dense heads in a float64 config and in
    float32, gim_lightglue in float32);
@@ -149,7 +153,7 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    cv2): the full-width segmenter on 4 frames of 640 x 360 (ms per frame,
    peak memory; one frame against the CPU), the per-pair labelling body
    `cli.video_preprocessor.label_pair` with the full-width gim_dkm at 840
-   in float32 on the masked frames (labels kept, ms per stage), the
+   in float32, K2 on, on the masked frames (labels kept, ms per stage), the
    fundamental filter (1024 hypotheses) at the matcher's label count and
    at 8192 planted labels against the CPU with the card's uniforms, and
    `Propagator.propagate_pair` over planted stores at skips 10/20/40
@@ -165,33 +169,22 @@ Run from the root of a checkout, on a machine with one CUDA card, `nvcc`
    card; ms per image and per pair of each stage, the aggregation's ms on
    the host, peak memory; one pair card against CPU (SuperPoint,
    LightGlue's matches0 at resize_max 640, the verification with the
-   card's uniforms); the dense stage again with GIM_TPU_FUSED_REFINER=1:
-   K2 launches per pair asserted, keypoints against the switch-off run,
-   and K2's float32 kernel at each input shape that run gave it against
-   its plain version at TOL_F32, timed beside its floor and FP32-FMA
-   figure (printed: the `refiner_block_f32` entry takes phase 6's times);
+   card's uniforms); the dense stage runs on the plain graph first, then
+   with K2: K2 launches per pair asserted, keypoints against the
+   plain-graph run, and K2's float32 kernel at each input shape that run
+   gave it against its plain version at TOL_F32, timed beside its floor
+   and FP32-FMA figure (printed: the `refiner_block_f32` entry takes phase
+   6's times);
 30. SfM on the card: `hloc/mapper.incremental_mapping_native` on the
    60-camera synthetic database of the JAX package's envelope test (400
    points, 1770 verified pairs, 0.3 px), asserting its bounds; a second
    run equal bit for bit, under the profiler (busy share) with host syncs
    counted; stage ms per registration; `ba_steps`, PnP with fixed row
-   indices and `triangulate_tracks` card against CPU in float64;
-31. the dense heads' float32 path at full width: `Matcher("gim_roma")`
-   (phase 8's inputs) and `Matcher("gim_dkm")` (phase 10's inputs) at
-   their default dtype, float32, as `cli/zeb_eval.build_matcher` builds
-   them, TF32 off, seeded random weights; both switches on, then both
-   off; per head and setting one warm-up and 3 timed calls of 1 pair and
-   one call timed by stages; ms per pair, peak memory; 32 K2 and 29 K3
-   launches per gim_roma call and 32 K2 per gim_dkm call asserted, all
-   float32, none with the switches off; warp and certainty of the warm-up
-   pair, on against off, within SWITCH_TOL on >= MIN_AGREE of pixels. For
-   gim_roma's warp the check pins the anchors: its coarse pass picks each
-   pixel's anchor by argmax over 64^2 classes, which any float32 change
-   flips where two scores tie to rounding, so the warp is held with the
-   off run's anchors imposed; K2 alone, K3 alone and torch's float32
-   attention (the control) each print the pixels they move, the anchors
-   they flip and the off run's score gap at those flips, which must lie
-   within the control's largest change of the scores.
+   indices and `triangulate_tracks` card against CPU in float64.
+31. gim_roma and gim_dkm in float32 at full width: one `Matcher.match`
+   call each (phase 8's and phase 10's inputs, the heads' default dtype,
+   TF32 off) with the counters set to 0 just before: 32 K2 and 29 K3
+   launches for gim_roma, 32 K2 for gim_dkm, no masked K3.
 
 Any failed phase makes the script exit nonzero. On success the last two
 lines are the kernels' JSON summary and {"ok": true, "device": ...}. Its
@@ -200,9 +193,9 @@ from phase 4) and their `_f32` (phase 3, launches from phase 13);
 `refiner_block` and `flash_attention` (bf16: times from phases 6 and 7,
 launches from phases 8 and 10); `refiner_block_f32` and
 `flash_attention_f32` (float32: times from phases 6 and 7, launches from
-phase 31); `lightglue_attention` (K3's masked variant: times from phase 7
-at the ZEB sweep's batch of 16, with `batch1_*` keys at batch 1; launches
-a call from phase 14).
+phase 31); `lightglue_attention` (K3's masked variant: times from
+phase 7 at the ZEB sweep's batch of 16, with `batch1_*` keys at batch 1;
+launches a call from phase 14).
 Exits nonzero without a result when CUDA is not available or the package
 is not beside the script.
 """
@@ -360,22 +353,6 @@ def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
         f"nvidia-smi failed: {out.stderr.strip()}"
-
-
-@contextlib.contextmanager
-def switches(on: bool):
-    """GIM_TPU_FUSED_REFINER and GIM_TPU_FLASH_VIT set to "1" or "0"."""
-    names = ("GIM_TPU_FUSED_REFINER", "GIM_TPU_FLASH_VIT")
-    old = {k: os.environ.get(k) for k in names}
-    os.environ.update({k: "1" if on else "0" for k in names})
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def refiner_block_params(C: int, C_out: int, dtype, g):
@@ -1212,7 +1189,7 @@ class Smoke:
                       f"{err_p:.3e} against the plain version in bf16")
                 print(f"    kernel {t_k:.3f} ms ({nbytes / t_k / 1e6:.0f} "
                       f"GB/s, {t_k / b_ms:.2f}x its bound {b_ms:.3f} ms "
-                      f"({b_by})), plain {t_p:.3f} ms, switches-off block "
+                      f"({b_by})), plain {t_p:.3f} ms, plain-graph block "
                       f"(PyTorch depthwise conv + BN + ReLU + 1x1) "
                       f"{t_off:.3f} ms [{self.card}]")
                 assert ok, shape
@@ -1225,7 +1202,7 @@ class Smoke:
                 del x, got
             print(f"  per {head} call ({HIDDEN_BLOCKS} blocks at each "
                   f"shape): kernel {tot['ms']:.3f} ms, plain "
-                  f"{tot['plain_ms']:.3f} ms, switches-off blocks "
+                  f"{tot['plain_ms']:.3f} ms, plain-graph blocks "
                   f"{tot['off_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; "
                   f"kernel / bound {tot['ms'] / tot['bound_ms']:.2f} "
                   f"[{self.card}]")
@@ -1245,7 +1222,7 @@ class Smoke:
     def refiner_f32_full(self, g):
         """K2's float32 kernel at both heads' four full shapes (C_out = C):
         against its plain version at TOL_F32, timed beside the
-        switches-off block in float32 (PyTorch's convolutions, TF32 off)
+        plain-graph block in float32 (PyTorch's convolutions, TF32 off)
         and both bounds. Writes the `refiner_block_f32` entry: one
         gim_roma and one gim_dkm call together (8 launches a shape)."""
         import torch
@@ -1281,7 +1258,7 @@ class Smoke:
                 print(f"    kernel {t_k:.3f} ms ({t_k / b_ms:.2f}x its floor "
                       f"{b_ms:.3f} ms ({b_by}), {t_k / fma:.2f}x the "
                       f"FP32-FMA figure {fma:.3f} ms), plain {t_p:.3f} ms, "
-                      f"switches-off block {t_off:.3f} ms "
+                      f"plain-graph block {t_off:.3f} ms "
                       f"({t_k / t_off:.3f}x) [{self.card}]")
                 assert ok, shape
                 max_err = max(max_err, err)
@@ -1294,7 +1271,7 @@ class Smoke:
                   f"each shape): kernel {tot['ms']:.3f} ms, floor "
                   f"{tot['bound_ms']:.3f} ms ({tot['ms'] / tot['bound_ms']:.2f}"
                   f"x), FP32-FMA figure {tot['fma_ms']:.3f} ms, plain "
-                  f"{tot['plain_ms']:.3f} ms, switches-off blocks "
+                  f"{tot['plain_ms']:.3f} ms, plain-graph blocks "
                   f"{tot['off_ms']:.3f} ms ({tot['ms'] / tot['off_ms']:.3f}x)"
                   f" [{self.card}]")
             for k in grand:
@@ -1588,81 +1565,80 @@ class Smoke:
         counters = (refiner.LAUNCHES, flash.LAUNCHES)
         per_call = {"refiner_block": ROMA_K2_PER_CALL,
                     "flash_attention": ROMA_K3_PER_CALL}
-        with switches(True):
-            cfg = GimConfig(roma=RoMaConfig(dtype="bfloat16"))
-            t0 = time.perf_counter()
-            m = Matcher("gim_roma", cfg, generator=torch.Generator()
-                        .manual_seed(0), device="cuda")
-            print(f"  matcher built in {time.perf_counter() - t0:.1f} s")
-            g = torch.Generator(device=dev).manual_seed(8)
-            shape = (1, 3, ROMA_IMG, ROMA_IMG)
-            pairs = [(torch.rand(shape, device=dev, generator=g),
-                      torch.rand(shape, device=dev, generator=g))
-                     for _ in range(3)]
-            n = cfg.roma.num_samples
+        cfg = GimConfig(roma=RoMaConfig(dtype="bfloat16"))
+        t0 = time.perf_counter()
+        m = Matcher("gim_roma", cfg, generator=torch.Generator()
+                    .manual_seed(0), device="cuda")
+        print(f"  matcher built in {time.perf_counter() - t0:.1f} s")
+        g = torch.Generator(device=dev).manual_seed(8)
+        shape = (1, 3, ROMA_IMG, ROMA_IMG)
+        pairs = [(torch.rand(shape, device=dev, generator=g),
+                  torch.rand(shape, device=dev, generator=g))
+                 for _ in range(3)]
+        n = cfg.roma.num_samples
 
-            def check(r):
-                assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
-                assert r.kpts1.shape == (1, n, 2) and r.conf.shape == (1, n)
-                for t in (r.kpts0, r.kpts1, r.conf):
-                    assert bool(torch.isfinite(t).all())
+        def check(r):
+            assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
+            assert r.kpts1.shape == (1, n, 2) and r.conf.shape == (1, n)
+            for t in (r.kpts0, r.kpts1, r.conf):
+                assert bool(torch.isfinite(t).all())
 
-            for c in counters:
-                for k in c:
-                    c[k] = 0
-            calls = 0
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        calls = 0
 
-            def counts():
-                return {**refiner.LAUNCHES, **flash.LAUNCHES}
+        def counts():
+            return {**refiner.LAUNCHES, **flash.LAUNCHES}
 
-            def one(*args, **kw):
-                nonlocal calls
-                r = m.match(*args, **kw)
-                torch.cuda.synchronize()
-                calls += 1
-                check(r)
-                got = counts()
-                for k, each in per_call.items():
-                    assert got[k] == calls * each, (k, got[k], calls, each)
-                return r
-
-            one(*pairs[0])                               # warm-up
-            torch.cuda.reset_peak_memory_stats()
-            times = []
-            for a, b in pairs:
-                t0 = time.perf_counter()
-                r = one(a, b)
-                times.append(time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated()
-            print(f"  valid matches per call: {int(r.valid.sum())} of {n}")
-
-            # content masks: 672 x 504 content on the canvas (distort_aspect)
-            mask = torch.zeros(1, ROMA_IMG, ROMA_IMG, dtype=torch.bool,
-                               device=dev)
-            mask[:, :, :ROMA_IMG * 3 // 4] = True
-            a, b = pairs[0]
-            r = one(a * mask[:, None], b * mask[:, None], mask0=mask,
-                    mask1=mask)
-            v = r.valid[0]
-            inside = bool((r.kpts0[0][v][:, 0] <= ROMA_IMG * 3 // 4).all()
-                          and (r.kpts1[0][v][:, 0] <= ROMA_IMG * 3 // 4)
-                          .all())
-            print(f"  masked call: {int(v.sum())} valid, all inside the "
-                  f"content rectangle: {inside}")
-            assert inside and int(v.sum()) > 0
+        def one(*args, **kw):
+            nonlocal calls
+            r = m.match(*args, **kw)
+            torch.cuda.synchronize()
+            calls += 1
+            check(r)
             got = counts()
-            for k in per_call:
-                self.kernels[k]["launches"] = got[k]
-            ms = statistics.median(times) * 1e3
-            print(f"  main path: {calls} match calls, launches {got} "
-                  f"({ROMA_K2_PER_CALL} K2 and {ROMA_K3_PER_CALL} K3 per "
-                  f"call)")
-            print(f"  1 pair at {ROMA_IMG} px -> {cfg.roma.upsample_res[0]} "
-                  f"px, bf16, both kernels on: median {ms:.2f} ms per pair "
-                  f"(runs {[round(t * 1e3, 2) for t in times]}), peak memory "
-                  f"{peak / 2**30:.2f} GiB [{self.card}]")
-            self.roma_stages(m, pairs[1])
-            self.profile(lambda: m.match(*pairs[2]))
+            for k, each in per_call.items():
+                assert got[k] == calls * each, (k, got[k], calls, each)
+            return r
+
+        one(*pairs[0])                               # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for a, b in pairs:
+            t0 = time.perf_counter()
+            r = one(a, b)
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  valid matches per call: {int(r.valid.sum())} of {n}")
+
+        # content masks: 672 x 504 content on the canvas (distort_aspect)
+        mask = torch.zeros(1, ROMA_IMG, ROMA_IMG, dtype=torch.bool,
+                           device=dev)
+        mask[:, :, :ROMA_IMG * 3 // 4] = True
+        a, b = pairs[0]
+        r = one(a * mask[:, None], b * mask[:, None], mask0=mask,
+                mask1=mask)
+        v = r.valid[0]
+        inside = bool((r.kpts0[0][v][:, 0] <= ROMA_IMG * 3 // 4).all()
+                      and (r.kpts1[0][v][:, 0] <= ROMA_IMG * 3 // 4)
+                      .all())
+        print(f"  masked call: {int(v.sum())} valid, all inside the "
+              f"content rectangle: {inside}")
+        assert inside and int(v.sum()) > 0
+        got = counts()
+        for k in per_call:
+            self.kernels[k]["launches"] = got[k]
+        ms = statistics.median(times) * 1e3
+        print(f"  main path: {calls} match calls, launches {got} "
+              f"({ROMA_K2_PER_CALL} K2 and {ROMA_K3_PER_CALL} K3 per "
+              f"call)")
+        print(f"  1 pair at {ROMA_IMG} px -> {cfg.roma.upsample_res[0]} "
+              f"px, bf16, both kernels on: median {ms:.2f} ms per pair "
+              f"(runs {[round(t * 1e3, 2) for t in times]}), peak memory "
+              f"{peak / 2**30:.2f} GiB [{self.card}]")
+        self.roma_stages(m, pairs[1])
+        self.profile(lambda: m.match(*pairs[2]))
         # the GP's solve (2304 x 2304, float32): one batched call against
         # one call per image, which the port makes
         A = torch.randn(2, 2304, 2304, device=dev, generator=g) / 48.0
@@ -1694,12 +1670,12 @@ class Smoke:
         self.print_stages("one call", spans, total, "rest (resizes, gaps)")
 
     # -- 9 ------------------------------------------------------------------
-    def roma_switches_on_off(self):
+    def roma_kernels_vs_plain(self):
         import torch
 
         from gim_tpu_torch.api import Matcher
         from gim_tpu_torch.config import GimConfig, RoMaConfig
-        from gim_tpu_torch.ops.kernels import flash, refiner
+        from gim_tpu_torch.ops.kernels import flash, forward_only, refiner
 
         cfg = GimConfig(roma=RoMaConfig(coarse_res=224,
                                         upsample_res=(448, 448)))
@@ -1708,18 +1684,21 @@ class Smoke:
         g = torch.Generator(device="cuda").manual_seed(9)
         a = torch.rand(1, 3, 224, 224, device="cuda", generator=g)
         b = torch.roll(a, shifts=(9, 13), dims=(2, 3))
-        out = {}
-        for on in (True, False):
+        def run(launches):
             before = refiner.LAUNCHES["refiner_block"], \
                 flash.LAUNCHES["flash_attention"]
-            with switches(on), torch.inference_mode():
-                out[on] = m.model(a, b)
+            with torch.inference_mode():
+                o = m.model(a, b)
             torch.cuda.synchronize()
             after = refiner.LAUNCHES["refiner_block"], \
                 flash.LAUNCHES["flash_attention"]
             ran = tuple(y - x for x, y in zip(before, after))
-            assert ran == ((ROMA_K2_PER_CALL, ROMA_K3_PER_CALL) if on
-                           else (0, 0)), (on, ran)
+            assert ran == launches, (ran, launches)
+            return o
+
+        out = {True: run((ROMA_K2_PER_CALL, ROMA_K3_PER_CALL))}
+        with swapped(forward_only, "on_kernel", lambda x: False):
+            out[False] = run((0, 0))
         for i, name in enumerate(("warp", "cert")):
             d = (out[True][i] - out[False][i]).abs()
             if d.dim() == 4:
@@ -1728,8 +1707,9 @@ class Smoke:
             print(f"  {name}: agree within {SWITCH_TOL} on {share:.6f} of "
                   f"pixels (limit {MIN_AGREE}), max diff {float(d.max()):.3e}")
             assert share >= MIN_AGREE, name
-        print(f"  224 px -> 448 px, float32, TF32 off, switches on "
-              f"(K2 + K3) against off (PyTorch convolutions, plain sdpa)")
+        print(f"  224 px -> 448 px, float32, TF32 off, the kernels (K2 + "
+              f"K3) against the plain graph (PyTorch convolutions, plain "
+              f"sdpa)")
 
     # -- 10 -----------------------------------------------------------------
     def dkm_main_path(self):
@@ -1742,84 +1722,83 @@ class Smoke:
         dev = torch.device("cuda")
         S = DKM_CANVAS
         h, w = DKM_CONTENT
-        with switches(True):
-            cfg = GimConfig(dkm=DKMConfig(dtype="bfloat16"))
-            t0 = time.perf_counter()
-            m = Matcher("gim_dkm", cfg, generator=torch.Generator()
-                        .manual_seed(0), device="cuda")
-            print(f"  matcher built in {time.perf_counter() - t0:.1f} s")
-            g = torch.Generator(device=dev).manual_seed(10)
-            mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
-            mask[:, :h, :w] = True
-            shape = (1, 3, S, S)
-            pairs = [(torch.rand(shape, device=dev, generator=g) * mask,
-                      torch.rand(shape, device=dev, generator=g) * mask,
-                      None, None, mask, mask) for _ in range(3)]
-            n = cfg.dkm.num_samples
+        cfg = GimConfig(dkm=DKMConfig(dtype="bfloat16"))
+        t0 = time.perf_counter()
+        m = Matcher("gim_dkm", cfg, generator=torch.Generator()
+                    .manual_seed(0), device="cuda")
+        print(f"  matcher built in {time.perf_counter() - t0:.1f} s")
+        g = torch.Generator(device=dev).manual_seed(10)
+        mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
+        mask[:, :h, :w] = True
+        shape = (1, 3, S, S)
+        pairs = [(torch.rand(shape, device=dev, generator=g) * mask,
+                  torch.rand(shape, device=dev, generator=g) * mask,
+                  None, None, mask, mask) for _ in range(3)]
+        n = cfg.dkm.num_samples
 
-            for c in (refiner.LAUNCHES, flash.LAUNCHES):
-                for k in c:
-                    c[k] = 0
-            calls = 0
+        for c in (refiner.LAUNCHES, flash.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        calls = 0
 
-            def one(*args):
-                """One match call: finite keypoints of the right shapes,
-                inside the content rectangle (canvas width for the
-                aspect-pad call), 32 K2 launches and no K3 one."""
-                nonlocal calls
-                r = m.match(*args)
-                torch.cuda.synchronize()
-                calls += 1
-                assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
-                assert r.kpts1.shape == (1, n, 2) and r.conf.shape == (1, n)
-                for t in (r.kpts0, r.kpts1, r.conf):
-                    assert bool(torch.isfinite(t).all())
-                v = r.valid[0]
-                # aspect-pad: the canvas right-padded to the model's w:h
-                hh, ww = ((h, w) if args[4] is not None else
-                          (S, round(S * cfg.dkm.w_resized
-                                    / cfg.dkm.h_resized)))
-                for k in (r.kpts0[0][v], r.kpts1[0][v]):
-                    assert bool((k >= 0).all() and (k[:, 0] <= ww).all()
-                                and (k[:, 1] <= hh).all())
-                got = refiner.LAUNCHES["refiner_block"]
-                assert got == calls * DKM_K2_PER_CALL, (got, calls)
-                assert flash.LAUNCHES["flash_attention"] == 0
-                return r
-
-            one(*pairs[0])                               # warm-up
-            torch.cuda.reset_peak_memory_stats()
-            times = []
-            for p in pairs:
-                t0 = time.perf_counter()
-                r = one(*p)
-                times.append(time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated()
-            print(f"  valid matches per call: {int(r.valid.sum())} of {n}, "
-                  f"all inside the {w} x {h} content rectangle")
-            assert int(r.valid.sum()) > 0
-
-            # aspect-pad: no masks, the canvas right-padded to 840 x 1120
-            a, b = pairs[0][:2]
-            r = one(a, b, None, None, None, None)
-            print(f"  call without masks (aspect-pad): "
-                  f"{int(r.valid.sum())} valid")
-            assert int(r.valid.sum()) > 0
+        def one(*args):
+            """One match call: finite keypoints of the right shapes,
+            inside the content rectangle (canvas width for the
+            aspect-pad call), 32 K2 launches and no K3 one."""
+            nonlocal calls
+            r = m.match(*args)
+            torch.cuda.synchronize()
+            calls += 1
+            assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
+            assert r.kpts1.shape == (1, n, 2) and r.conf.shape == (1, n)
+            for t in (r.kpts0, r.kpts1, r.conf):
+                assert bool(torch.isfinite(t).all())
+            v = r.valid[0]
+            # aspect-pad: the canvas right-padded to the model's w:h
+            hh, ww = ((h, w) if args[4] is not None else
+                      (S, round(S * cfg.dkm.w_resized
+                                / cfg.dkm.h_resized)))
+            for k in (r.kpts0[0][v], r.kpts1[0][v]):
+                assert bool((k >= 0).all() and (k[:, 0] <= ww).all()
+                            and (k[:, 1] <= hh).all())
             got = refiner.LAUNCHES["refiner_block"]
-            self.kernels["refiner_block"]["launches"] += got
-            ms = statistics.median(times) * 1e3
-            print(f"  main path: {calls} match calls, K2 launches {got} "
-                  f"({DKM_K2_PER_CALL} per call); the K2 entry's launches "
-                  f"now {self.kernels['refiner_block']['launches']} "
-                  f"(gim_roma's and gim_dkm's main paths)")
-            print(f"  1 pair of {S} x {S} canvases ({w} x {h} content) -> "
-                  f"{cfg.dkm.h_resized} x {cfg.dkm.w_resized} -> "
-                  f"{cfg.dkm.upsample_res[0]} x {cfg.dkm.upsample_res[1]}, "
-                  f"bf16, K2 on: median {ms:.2f} ms per pair (runs "
-                  f"{[round(t * 1e3, 2) for t in times]}), peak memory "
-                  f"{peak / 2**30:.2f} GiB [{self.card}]")
-            self.dkm_stages(m, pairs[1])
-            self.profile(lambda: m.match(*pairs[2]))
+            assert got == calls * DKM_K2_PER_CALL, (got, calls)
+            assert flash.LAUNCHES["flash_attention"] == 0
+            return r
+
+        one(*pairs[0])                               # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for p in pairs:
+            t0 = time.perf_counter()
+            r = one(*p)
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  valid matches per call: {int(r.valid.sum())} of {n}, "
+              f"all inside the {w} x {h} content rectangle")
+        assert int(r.valid.sum()) > 0
+
+        # aspect-pad: no masks, the canvas right-padded to 840 x 1120
+        a, b = pairs[0][:2]
+        r = one(a, b, None, None, None, None)
+        print(f"  call without masks (aspect-pad): "
+              f"{int(r.valid.sum())} valid")
+        assert int(r.valid.sum()) > 0
+        got = refiner.LAUNCHES["refiner_block"]
+        self.kernels["refiner_block"]["launches"] += got
+        ms = statistics.median(times) * 1e3
+        print(f"  main path: {calls} match calls, K2 launches {got} "
+              f"({DKM_K2_PER_CALL} per call); the K2 entry's launches "
+              f"now {self.kernels['refiner_block']['launches']} "
+              f"(gim_roma's and gim_dkm's main paths)")
+        print(f"  1 pair of {S} x {S} canvases ({w} x {h} content) -> "
+              f"{cfg.dkm.h_resized} x {cfg.dkm.w_resized} -> "
+              f"{cfg.dkm.upsample_res[0]} x {cfg.dkm.upsample_res[1]}, "
+              f"bf16, K2 on: median {ms:.2f} ms per pair (runs "
+              f"{[round(t * 1e3, 2) for t in times]}), peak memory "
+              f"{peak / 2**30:.2f} GiB [{self.card}]")
+        self.dkm_stages(m, pairs[1])
+        self.profile(lambda: m.match(*pairs[2]))
 
     def dkm_stages(self, m, pair):
         """Time on the card's stream of each stage of one call; the
@@ -1843,12 +1822,12 @@ class Smoke:
                           "rest (input resizes, gaps)")
 
     # -- 11 -----------------------------------------------------------------
-    def dkm_switch_on_off(self):
+    def dkm_kernels_vs_plain(self):
         import torch
 
         from gim_tpu_torch.api import Matcher
         from gim_tpu_torch.config import DKMConfig, GimConfig
-        from gim_tpu_torch.ops.kernels import refiner
+        from gim_tpu_torch.ops.kernels import forward_only, refiner
 
         cfg = GimConfig(dkm=DKMConfig(h_resized=240, w_resized=320,
                                       upsample_res=(384, 512)))
@@ -1857,14 +1836,18 @@ class Smoke:
         g = torch.Generator(device="cuda").manual_seed(11)
         a = torch.rand(1, 3, 240, 320, device="cuda", generator=g)
         b = torch.roll(a, shifts=(9, 13), dims=(2, 3))
-        out = {}
-        for on in (True, False):
+        def run(launches):
             before = refiner.LAUNCHES["refiner_block"]
-            with switches(on), torch.inference_mode():
-                out[on] = m.model(a, b)
+            with torch.inference_mode():
+                o = m.model(a, b)
             torch.cuda.synchronize()
             ran = refiner.LAUNCHES["refiner_block"] - before
-            assert ran == (DKM_K2_PER_CALL if on else 0), (on, ran)
+            assert ran == launches, (ran, launches)
+            return o
+
+        out = {True: run(DKM_K2_PER_CALL)}
+        with swapped(forward_only, "on_kernel", lambda x: False):
+            out[False] = run(0)
         for i, name in enumerate(("warp", "cert")):
             d = (out[True][i] - out[False][i]).abs()
             if d.dim() == 4:
@@ -1873,8 +1856,8 @@ class Smoke:
             print(f"  {name}: agree within {SWITCH_TOL} on {share:.6f} of "
                   f"pixels (limit {MIN_AGREE}), max diff {float(d.max()):.3e}")
             assert share >= MIN_AGREE, name
-        print("  240 x 320 -> 384 x 512, float32, TF32 off, switch on (K2) "
-              "against off (PyTorch convolutions)")
+        print("  240 x 320 -> 384 x 512, float32, TF32 off, K2 against the "
+              "plain graph (PyTorch convolutions)")
 
     # -- 12 -----------------------------------------------------------------
     def zeb_geometry(self):
@@ -2751,48 +2734,18 @@ class Smoke:
         marks.report(f"{tr.weight} training step", self.card)
 
     def dkm_train_main_path(self):
-        """Phase 20, with GIM_TPU_FUSED_REFINER=1 (and GIM_TPU_FLASH_VIT=1)
-        set: training takes no kernel (the ConvRefiner's gate)."""
-        with switches(True):
-            self.head_train_main_path("gim_dkm")
+        """Phase 20: training takes no kernel (a step is never in
+        inference mode, and the ConvRefiner in train_mode does not
+        fuse)."""
+        self.head_train_main_path("gim_dkm")
 
     def roma_train_main_path(self):
-        """Phase 21 with the switches off; then one step's loss with
-        GIM_TPU_FLASH_VIT=1: K3 runs in DINOv2's 24 blocks (under
-        no_grad) and the coordinate decoder's 5, and the backward raises
-        at the decoder's attention, where JAX's step fails too."""
-        import torch
-
-        from gim_tpu_torch.ops.kernels.forward_only import \
-            KernelBackwardError
-        from gim_tpu_torch.train.dense_losses import dense_loss
-
-        with switches(False):
-            tr, batch = self.head_train_main_path("gim_roma")
-        c = tr.cfg.roma
-        with torch.enable_grad(), env(GIM_TPU_FLASH_VIT="1"):
-            tr.optimizer.zero_grad(set_to_none=False)
-            self.kernel_counts(reset=True)
-            loss, _ = dense_loss(tr.model, batch)
-            torch.cuda.synchronize()
-            counts = self.kernel_counts()
-            print(f"  GIM_TPU_FLASH_VIT=1: loss {float(loss.detach()):.6f}, "
-                  f"kernel "
-                  f"launches in the forward {counts}")
-            assert counts.pop("flash_attention") == (c.dino_depth
-                                                     + c.num_decoder_blocks)
-            assert not any(counts.values()), counts
-            try:
-                loss.backward()
-            except KernelBackwardError as e:
-                print(f"  the backward raises: {e}")
-            else:
-                raise AssertionError("a backward through K3 did not raise")
+        """Phase 21: no kernel either where DINOv2 runs under no_grad."""
+        self.head_train_main_path("gim_roma")
 
     def lightglue_train_main_path(self):
         """Phase 22."""
-        with switches(False):
-            self.head_train_main_path("gim_lightglue")
+        self.head_train_main_path("gim_lightglue")
 
     @staticmethod
     def head_check_config(weight: str, dtype: str):
@@ -2955,8 +2908,7 @@ class Smoke:
             batches = [train_batch(rng, 1, S, LOOP_LABELS, self.dev)
                        for _ in range(LOOP_STEPS)]
             with tempfile.TemporaryDirectory() as d, \
-                    deterministic() as warned, torch.enable_grad(), \
-                    switches(False):
+                    deterministic() as warned, torch.enable_grad():
                 a = self.head_trainer(weight, cfg, 0)
                 la = train_loop(a, iter(batches), 2, ckpt_dir=d,
                                 save_interval=2, log_interval=1)
@@ -3478,7 +3430,7 @@ class Smoke:
             VERIFY_SEED, build_database_arrays, geometric_verification_onchip)
         from gim_tpu_torch.models.dkm import blocks as dkm_blocks
         from gim_tpu_torch.ops.image import preprocess_image
-        from gim_tpu_torch.ops.kernels import refiner
+        from gim_tpu_torch.ops.kernels import forward_only, refiner
         from gim_tpu_torch.utils.profiling import StageTimer
 
         dev = self.dev
@@ -3526,7 +3478,8 @@ class Smoke:
 
         dense(*pairs[0])                                        # warm-up
         before = refiner.LAUNCHES["refiner_block"]
-        with env(GIM_TPU_FUSED_REFINER="0"), timer.stage("dense match"):
+        with swapped(forward_only, "on_kernel", lambda x: False), \
+                timer.stage("dense match"):
             raw = {p: dense(*p) for p in pairs}
         assert refiner.LAUNCHES["refiner_block"] == before
         with timer.stage("aggregate (host)"):
@@ -3644,7 +3597,7 @@ class Smoke:
               f"inliers")
         assert agree >= MASK_AGREE and vc.sum() >= 0.6 * n
 
-        # the dense stage with K2 (GIM_TPU_FUSED_REFINER=1); the blocks'
+        # the dense stage with K2 (the kernel rule as it is); the blocks'
         # inputs are recorded on the way to the kernel's wrapper
         seen = collections.Counter()
         wrapper = dkm_blocks.fused_dw_block
@@ -3657,10 +3610,9 @@ class Smoke:
             refiner.LAUNCHES[k] = 0
         dkm_blocks.fused_dw_block = recording
         try:
-            with env(GIM_TPU_FUSED_REFINER="1"):
-                t0 = time.perf_counter()
-                raw_on = {p: dense(*p) for p in pairs}
-                on_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+            t0 = time.perf_counter()
+            raw_on = {p: dense(*p) for p in pairs}
+            on_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
         finally:
             dkm_blocks.fused_dw_block = wrapper
         k2 = refiner.LAUNCHES["refiner_block"]
@@ -3676,27 +3628,27 @@ class Smoke:
             shares.append(len(a & b) / max(len(a | b), 1))
         # one pair's samples slot by slot (phase 11's tolerance, pixels of
         # the 672 canvas)
-        out = {}
-        for flag in ("0", "1"):
-            with env(GIM_TPU_FUSED_REFINER=flag):
-                out[flag] = match_fn(dk.name, cfg, dk.model,
-                                     dpre[n0].color[None],
-                                     dpre[n1].color[None],
-                                     dpre[n0].scale[None],
-                                     dpre[n1].scale[None], device=dev)
-        both = out["0"].valid & out["1"].valid
-        dk0 = (out["0"].kpts0 - out["1"].kpts0).abs().amax(-1)
-        dk1 = (out["0"].kpts1 - out["1"].kpts1).abs().amax(-1)
+        def one_pair():
+            return match_fn(dk.name, cfg, dk.model, dpre[n0].color[None],
+                            dpre[n1].color[None], dpre[n0].scale[None],
+                            dpre[n1].scale[None], device=dev)
+
+        with swapped(forward_only, "on_kernel", lambda x: False):
+            out = {False: one_pair()}
+        out[True] = one_pair()
+        both = out[False].valid & out[True].valid
+        dk0 = (out[False].kpts0 - out[True].kpts0).abs().amax(-1)
+        dk1 = (out[False].kpts1 - out[True].kpts1).abs().amax(-1)
         tol = SWITCH_TOL * HLOC_DENSE_IMG
-        slot = float(((out["0"].valid == out["1"].valid)
+        slot = float(((out[False].valid == out[True].valid)
                       & (~both | ((dk0 <= tol) & (dk1 <= tol))))
                      .float().mean())
-        print(f"  gim_dkm with K2 (GIM_TPU_FUSED_REFINER=1): {k2} K2 "
+        print(f"  gim_dkm with K2 (the card's default): {k2} K2 "
               f"launches for {len(pairs)} pairs ({k2 // len(pairs)} per "
               f"pair), {on_ms:.2f} ms per pair against "
               f"{t['dense match'] * 1e3 / len(pairs):.2f} without "
               f"[{self.card}]; canonical keypoints shared with the "
-              f"switch-off run {[round(x, 4) for x in shares]} (limit "
+              f"plain-graph run {[round(x, 4) for x in shares]} (limit "
               f"{MASK_AGREE}); one pair's samples agree within {tol:.3f} px "
               f"on {slot:.5f} of slots (limit {MIN_AGREE})")
         assert min(shares) >= MASK_AGREE and slot >= MIN_AGREE
@@ -3909,241 +3861,65 @@ class Smoke:
         assert max(ba + pnp + [tri]) <= SFM_TOL and pnp_inl and tri_ok
         assert int(want[3]) >= 0.8 * len(X) and th[1].sum() > SFM_MIN_POINTS
 
-
     # -- 31 -----------------------------------------------------------------
     def dense_f32_main_path(self):
-        """Phase 31: the float32 path of the dense heads at full width.
-        `Matcher("gim_roma")` and `Matcher("gim_dkm")` at their default
-        dtype (float32, as `cli/zeb_eval.build_matcher` builds them), TF32
-        off, seeded random weights; both switches on, then both off; per
-        head and setting one warm-up and 3 timed calls of 1 pair (phase 8's
-        and phase 10's inputs) and one call timed by stages. Asserts 32 K2
-        and 29 K3 float32 launches per gim_roma call, 32 K2 per gim_dkm
-        call, none with the switches off, and warp and certainty of the
-        warm-up pair on against off within SWITCH_TOL. The counters are set
-        to 0 just before and read just after: the launches of the
-        `refiner_block_f32` and `flash_attention_f32` entries."""
+        """Phase 31: one `Matcher.match` call of gim_roma and one of gim_dkm
+        at their default dtype (float32, as `cli/zeb_eval.build_matcher`
+        builds them), full width, TF32 off, seeded random weights, on
+        inputs of phases 8 and 10. The counters are set to 0 just before
+        each call and read just after: 32 K2 and 29 K3 launches for
+        gim_roma, 32 K2 for gim_dkm, no masked K3 for either. Their sums
+        are the launches of the `refiner_block_f32` and
+        `flash_attention_f32` entries."""
         import torch
 
+        from gim_tpu_torch.api import Matcher
         from gim_tpu_torch.config import GimConfig
-        from gim_tpu_torch.models import dinov2
-        from gim_tpu_torch.models.dkm import blocks as dkm_blocks
-        from gim_tpu_torch.models.roma import model as roma_model
         from gim_tpu_torch.ops.kernels import flash, refiner
 
         cfg = GimConfig()
         assert cfg.roma.dtype == cfg.dkm.dtype == "float32"
-        dev = torch.device(self.dev)
-        g = torch.Generator(device=dev).manual_seed(31)
-        shape = (1, 3, ROMA_IMG, ROMA_IMG)
-        roma_pairs = [(torch.rand(shape, device=dev, generator=g),
-                       torch.rand(shape, device=dev, generator=g))
-                      for _ in range(3)]
-        S, (h, w) = DKM_CANVAS, DKM_CONTENT
-        mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
-        mask[:, :h, :w] = True
-        dkm_pairs = [(torch.rand(1, 3, S, S, device=dev, generator=g) * mask,
-                      torch.rand(1, 3, S, S, device=dev, generator=g) * mask,
-                      None, None, mask, mask) for _ in range(3)]
-
-        # the kernels' inputs are recorded on the way to their wrappers
-        seen = collections.Counter()
-        k2, k3 = dkm_blocks.fused_dw_block, dinov2.flash_sdpa
-
-        def rec_k2(x, *f):
-            seen[("refiner_block", x.dtype)] += 1
-            return k2(x, *f)
-
-        def rec_k3(q, k, v):
-            seen[("flash_attention", q.dtype)] += 1
-            return k3(q, k, v)
-
-        # gim_roma's coarse anchor logits of a run's first call ("cls"),
-        # and anchors to impose in place of their argmax ("pin")
-        coarse, cls_fn = {}, roma_model.cls_to_flow_refine
-
-        def rec_cls(cls_logits, mode=None):
-            coarse.setdefault("cls", cls_logits.detach().clone())
-            return cls_fn(cls_logits, coarse.get("pin", mode))
-
-        for c in (refiner.LAUNCHES, flash.LAUNCHES):
-            for k in c:
-                c[k] = 0
-        dkm_blocks.fused_dw_block, dinov2.flash_sdpa = rec_k2, rec_k3
-        roma_model.cls_to_flow_refine = rec_cls
-        try:
-            for head, pairs, per_call in (
-                    ("gim_roma", roma_pairs,
-                     {"refiner_block": ROMA_K2_PER_CALL,
-                      "flash_attention": ROMA_K3_PER_CALL}),
-                    ("gim_dkm", dkm_pairs,
-                     {"refiner_block": DKM_K2_PER_CALL,
-                      "flash_attention": 0})):
-                self.dense_f32_head(head, cfg, pairs, per_call, coarse)
-        finally:
-            dkm_blocks.fused_dw_block, dinov2.flash_sdpa = k2, k3
-            roma_model.cls_to_flow_refine = cls_fn
-        got = {**refiner.LAUNCHES, **flash.LAUNCHES}
-        # LightGlue's masked variant is on neither dense head's path
-        assert got.pop("lightglue_attention") == 0, got
-        assert set(seen) <= {(k, torch.float32) for k in got}, seen
-        assert {k: seen[(k, torch.float32)] for k in got} == got, (seen, got)
-        for k, n in got.items():
-            self.kernels[k + "_f32"]["launches"] = n
-        print(f"  launches in this phase: {got} (all float32)")
-
-    def dense_f32_head(self, head: str, cfg, pairs, per_call: dict,
-                       coarse: dict):
-        """Phase 31 for one head (see `dense_f32_main_path`); `coarse`
-        receives gim_roma's coarse anchor logits."""
-        import torch
-
-        from gim_tpu_torch.api import Matcher
-        from gim_tpu_torch.ops.kernels import flash, refiner
-
-        t0 = time.perf_counter()
-        m = Matcher(head, cfg, generator=torch.Generator().manual_seed(0),
-                    device="cuda")
         assert not (torch.backends.cuda.matmul.allow_tf32
                     or torch.backends.cudnn.allow_tf32)
-        print(f"  {head}: matcher built in {time.perf_counter() - t0:.1f} s")
-        n = (cfg.roma if head == "gim_roma" else cfg.dkm).num_samples
-        first = {}
-        m.model.register_forward_hook(
-            lambda mod, inp, out: first.setdefault("out", (out[0].clone(),
-                                                           out[1].clone())))
-
-        def counts():
-            return {**refiner.LAUNCHES, **flash.LAUNCHES}
-
-        res = {}
-        for on in (True, False):
-            first.clear()
-            coarse.clear()
-            before = counts()
-            with switches(on):
-                r = m.match(*pairs[0])                  # warm-up
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                times = []
-                for p in pairs:
-                    t1 = time.perf_counter()
-                    r = m.match(*p)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t1)
-                    assert r.kpts0.shape == (1, n, 2), r.kpts0.shape
-                    assert r.kpts1.shape == (1, n, 2)
-                    assert r.conf.shape == (1, n)
-                    for t in (r.kpts0, r.kpts1, r.conf):
-                        assert bool(torch.isfinite(t).all())
-                peak = torch.cuda.max_memory_allocated()
-                (self.roma_stages if head == "gim_roma"
-                 else self.dkm_stages)(m, pairs[1])
-            calls = len(pairs) + 2
-            after = counts()
-            ran = {k: after[k] - before[k] for k in per_call}
-            want = {k: (v * calls if on else 0) for k, v in per_call.items()}
-            assert ran == want, (head, on, ran, want)
-            ms = statistics.median(times) * 1e3
-            res[on] = (ms, first["out"], coarse.get("cls"))
-            print(f"  {head} float32, switches {'on' if on else 'off'}: "
-                  f"median {ms:.2f} ms per pair (runs "
-                  f"{[round(t * 1e3, 2) for t in times]}), peak memory "
-                  f"{peak / 2**30:.2f} GiB, {int(r.valid.sum())} of {n} "
-                  f"valid; launches {ran} over {calls} calls [{self.card}]")
-        on_ms, off_ms = res[True][0], res[False][0]
-        print(f"  {head} float32: switches on {on_ms:.2f} ms against off "
-              f"{off_ms:.2f} ms per pair (on - off {on_ms - off_ms:+.2f} ms, "
-              f"on / off {on_ms / off_ms:.3f}) [{self.card}]")
-        if head == "gim_roma":
-            self.roma_anchor_runs(m, pairs[0], first, coarse, res)
-        for i, name in enumerate(("warp", "cert")):
-            moved, dmax = moved_share(res[True][1], res[False][1], i)
-            print(f"  {head} {name}: on against off within {SWITCH_TOL} on "
-                  f"{1.0 - moved:.6f} of pixels (moved {moved:.6f}), max diff "
-                  f"{dmax:.3e}")
-            if head == "gim_roma" and name == "warp":
-                continue      # held with the anchors pinned (above)
-            assert moved <= 1.0 - MIN_AGREE, (head, name, moved)
-        del m, res, first
-        coarse.clear()
-        torch.cuda.empty_cache()
-
-    def roma_anchor_runs(self, m, pair, first, coarse, res):
-        """Phase 31, gim_roma: what moves its warp. The coarse pass picks
-        each pixel's anchor by argmax over 64^2 classes, so a float32
-        change anywhere upstream flips the anchor where the two best
-        scores tie to rounding, and moves that region's warp by an anchor
-        spacing. One call each on `pair`: K2 alone, K3 alone, and the
-        switches off with torch's float32 attention in place of the plain
-        one (the control), each against the off run: pixels moved past
-        SWITCH_TOL, anchors flipped, the largest logit difference and the
-        off run's gap between its best score and the flipped-to anchor's,
-        which must lie within the control's largest logit difference (a
-        tie that any float32 attention may flip). Then the switches on
-        with the off run's anchors imposed: warp and certainty within
-        SWITCH_TOL on >= MIN_AGREE of pixels."""
-        import torch
-        import torch.nn.functional as F
-
-        from gim_tpu_torch.models import dinov2
-
-        def torch_sdpa(q, k, v, mask=None):
-            return F.scaled_dot_product_attention(q, k, v)
-
-        def once(fused: str, vit: str, sdpa=None):
-            first.clear()
-            coarse.pop("cls", None)
-            with env(GIM_TPU_FUSED_REFINER=fused, GIM_TPU_FLASH_VIT=vit), \
-                    swapped(dinov2, "sdpa", sdpa or dinov2.sdpa):
-                m.match(*pair)
-            return first["out"], coarse["cls"]
-
-        runs = {"on": res[True][1:], "K2 only": once("1", "0"),
-                "K3 only": once("0", "1"),
-                "control": once("0", "0", torch_sdpa)}
-        off_out, off_cls = res[False][1:]
-        off_mode = torch.softmax(off_cls, -1).argmax(-1)
-        ulp = float(off_cls.abs().amax()) * 2.0 ** -23
-        control_diff = float((runs["control"][1] - off_cls).abs().amax())
-        for what in ("control", "on", "K2 only", "K3 only"):
-            out, cls = runs[what]
-            mode = torch.softmax(cls, -1).argmax(-1)
-            flip = mode != off_mode
-            gap = float((off_cls.amax(-1) - off_cls.gather(
-                -1, mode[..., None]).squeeze(-1))[flip].max()) \
-                if bool(flip.any()) else 0.0
-            print(f"  gim_roma {what} against off: warp moved "
-                  f"{moved_share(out, off_out, 0)[0]:.6f} of pixels past "
-                  f"{SWITCH_TOL}, {int(flip.sum())} of {flip.numel()} coarse "
-                  f"anchors flipped, logits max diff "
-                  f"{float((cls - off_cls).abs().amax()):.3e}, off's score "
-                  f"gap at the flips max {gap:.3e} ({gap / ulp:.1f} ulps of "
-                  f"the largest logit)")
-            # every flip is a tie within what torch's own float32
-            # attention moves the scores by
-            assert what == "control" or gap <= control_diff, (what, gap)
-        coarse["pin"] = off_mode
-        try:
-            out, _ = once("1", "1")
-        finally:
-            coarse.pop("pin")
-        for i, name in enumerate(("warp", "cert")):
-            moved, dmax = moved_share(out, off_out, i)
-            print(f"  gim_roma {name}, on with the off run's anchors, against "
-                  f"off: within {SWITCH_TOL} on {1.0 - moved:.6f} of pixels "
-                  f"(moved {moved:.6f}), max diff {dmax:.3e}")
-            assert moved <= 1.0 - MIN_AGREE, ("pinned", name, moved)
-
-
-def moved_share(a, b, i: int):
-    """Share of pixels where output i (0 warp, 1 certainty) of two model
-    outputs differs by more than SWITCH_TOL (any coordinate), and the
-    largest difference."""
-    d = (a[i] - b[i]).abs()
-    if d.dim() == 4:
-        d = d.amax(-1)
-    return float((d > SWITCH_TOL).float().mean()), float(d.max())
+        dev = torch.device(self.dev)
+        g = torch.Generator(device=dev).manual_seed(31)
+        R, S, (h, w) = ROMA_IMG, DKM_CANVAS, DKM_CONTENT
+        mask = torch.zeros(1, S, S, dtype=torch.bool, device=dev)
+        mask[:, :h, :w] = True
+        runs = (
+            ("gim_roma", cfg.roma.num_samples,
+             (torch.rand(1, 3, R, R, device=dev, generator=g),
+              torch.rand(1, 3, R, R, device=dev, generator=g)),
+             {"refiner_block": ROMA_K2_PER_CALL,
+              "flash_attention": ROMA_K3_PER_CALL}),
+            ("gim_dkm", cfg.dkm.num_samples,
+             (torch.rand(1, 3, S, S, device=dev, generator=g) * mask,
+              torch.rand(1, 3, S, S, device=dev, generator=g) * mask,
+              None, None, mask, mask),
+             {"refiner_block": DKM_K2_PER_CALL, "flash_attention": 0}))
+        total = collections.Counter()
+        for head, n, args, per_call in runs:
+            m = Matcher(head, cfg, generator=torch.Generator().manual_seed(0),
+                        device=dev)
+            for c in (refiner.LAUNCHES, flash.LAUNCHES):
+                for k in c:
+                    c[k] = 0
+            r = m.match(*args)
+            torch.cuda.synchronize()
+            got = {**refiner.LAUNCHES, **flash.LAUNCHES}
+            assert got == {**per_call, "lightglue_attention": 0}, (head, got)
+            assert r.kpts0.shape == r.kpts1.shape == (1, n, 2), r.kpts0.shape
+            assert r.conf.shape == (1, n)
+            for t in (r.kpts0, r.kpts1, r.conf):
+                assert bool(torch.isfinite(t).all())
+            total.update(got)
+            print(f"  {head} float32, one call: launches {got}, "
+                  f"{int(r.valid.sum())} of {n} valid [{self.card}]")
+            del m, r
+            torch.cuda.empty_cache()
+        for k in ("refiner_block", "flash_attention"):
+            self.kernels.setdefault(k + "_f32", {"name": k + "_f32"})[
+                "launches"] = total[k]
 
 
 class Marks:
@@ -4197,21 +3973,6 @@ def swapped(module, name: str, value):
         yield
     finally:
         setattr(module, name, old)
-
-
-@contextlib.contextmanager
-def env(**values):
-    """Environment variables set for the block, restored after."""
-    old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def stack_batches(batches: list[dict]) -> dict:
@@ -4597,10 +4358,11 @@ def main() -> int:
         s.phase("6 K2 against its plain version", s.refiner_vs_plain)
         s.phase("7 K3 against its plain version", s.flash_vs_plain)
         s.phase("8 gim_roma main path", s.roma_main_path)
-        s.phase("9 gim_roma switches on against off",
-                s.roma_switches_on_off)
+        s.phase("9 gim_roma kernels against the plain graph",
+                s.roma_kernels_vs_plain)
         s.phase("10 gim_dkm main path", s.dkm_main_path)
-        s.phase("11 gim_dkm switch on against off", s.dkm_switch_on_off)
+        s.phase("11 gim_dkm K2 against the plain graph",
+                s.dkm_kernels_vs_plain)
         s.phase("12 ZEB geometry on the card", s.zeb_geometry)
         s.phase("13 ZEB path", s.zeb_path)
         s.phase("14 gim_lightglue main path", s.lightglue_main_path)

@@ -6,8 +6,9 @@ DinoVisionTransformer :322, vit_large :621, Attention :54-91, LayerScale
 are the DINOv2 hub checkpoint's (`blocks.{i}.attn.qkv`, `patch_embed.proj`,
 ...).
 
-Attention runs as kernel K3 (`ops/kernels/flash.py`) when
-GIM_TPU_FLASH_VIT is on, else as the plain `sdpa`, the JAX default graph.
+Attention runs as kernel K3 (`ops/kernels/flash.py`) where
+`forward_only.on_kernel` holds (a card tensor in inference mode), else as
+the plain `sdpa`, the JAX default graph.
 `Block` is also the RoMa coordinate decoder's block (no layer scale, no
 qkv bias, head dim 128).
 
@@ -25,9 +26,9 @@ import torch.nn.functional as F
 
 from gim_tpu_torch.models.common import conv, dense, layernorm
 from gim_tpu_torch.ops.attention import sdpa
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.ops.kernels.flash import flash_sdpa
 from gim_tpu_torch.ops.resize import bicubic_matrix
-from gim_tpu_torch.utils import flags
 from gim_tpu_torch.utils.device import torch_dtype
 
 
@@ -46,7 +47,7 @@ class Attention(nn.Module):
             B, N, 3, self.num_heads, C // self.num_heads)
         qkv = qkv.permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)                       # (B, H, N, hd) views
-        if flags.flash_vit():
+        if forward_only.on_kernel(q):
             # the kernel reads the strided views in place; on the card its
             # output is a view of a (B, N, H, hd) buffer, so the merge of
             # the heads below is a view too

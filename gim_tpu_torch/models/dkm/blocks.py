@@ -29,11 +29,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gim_tpu_torch.models.common import batchnorm, conv
-from gim_tpu_torch.ops.kernels.refiner import (fold_block_params,
+from gim_tpu_torch.ops.kernels import forward_only
+from gim_tpu_torch.ops.kernels.refiner import (MAX_CHANNELS,
+                                               fold_block_params,
                                                fused_dw_block)
 from gim_tpu_torch.ops.resize import resize_bilinear
 from gim_tpu_torch.ops.sampling import bilinear_sample, grid_sample
-from gim_tpu_torch.utils import flags
 from gim_tpu_torch.utils.device import torch_dtype
 
 
@@ -307,11 +308,12 @@ class ConvRefiner(nn.Module):
     emb_scale 40/32 * scale_factor, DKM 1.
 
     In `train_mode` every BatchNorm takes the batch's statistics. The
-    hidden blocks run as kernel K2 (`ops/kernels/refiner.py`) when
-    GIM_TPU_FUSED_REFINER is on, the module is not in `train_mode` and
-    hidden_dim <= 192 (`blocks.py:582-584`); otherwise as depthwise conv,
-    BatchNorm, ReLU and 1x1 conv, the JAX default graph. The warped
-    features take no gradient (`blocks.py:640-642`: stop_gradient).
+    hidden blocks run as kernel K2 (`ops/kernels/refiner.py`) where
+    `forward_only.on_kernel` holds (a card tensor in inference mode), the
+    module is not in `train_mode` and hidden_dim <= 192
+    (`blocks.py:582-584`); otherwise as depthwise conv, BatchNorm, ReLU and
+    1x1 conv, the JAX default graph. The warped features take no gradient
+    (`blocks.py:640-642`: stop_gradient).
     """
 
     def __init__(self, in_dim: int, hidden_dim: int,
@@ -331,9 +333,9 @@ class ConvRefiner(nn.Module):
         self.out_conv = nn.Conv2d(hidden_dim, 3, 1)
         self.disp_emb = nn.Conv2d(2, displacement_emb_dim, 1)
 
-    def fuses_hidden_blocks(self) -> bool:
-        return (not self.train_mode and self.hidden_dim <= 192
-                and flags.fused_refiner())
+    def fuses_hidden_blocks(self, x: torch.Tensor) -> bool:
+        return (not self.train_mode and self.hidden_dim <= MAX_CHANNELS
+                and forward_only.on_kernel(x))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, flow: torch.Tensor,
                 emb_scale: float = 1.0):
@@ -354,7 +356,7 @@ class ConvRefiner(nn.Module):
                                            flow=flow))
         d = torch.cat([p.to(dt) for p in parts], dim=1)
         d = _run_block(self.block1, d, dt, self.train_mode)
-        if self.fuses_hidden_blocks():
+        if self.fuses_hidden_blocks(d):
             for blk in self.hidden_blocks:
                 params = fold_block_params(blk[0], blk[1], blk[3])
                 d = fused_dw_block(d.contiguous(),

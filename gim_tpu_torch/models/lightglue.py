@@ -9,15 +9,14 @@ reference's early exit and pruning are off by default, :316-317, and
 `TokenConfidence` is not ported) and padded keypoint slots are masked in the
 attention.
 
-Attention. On card tensors with nothing for autograd to record (inference:
-`api.match_fn` runs under `inference_mode`), each of a layer's four
+Attention. Where `forward_only.on_kernel` holds (card tensors in inference
+mode: `api.match_fn`, hloc's `lightglue_pair`), each of a layer's four
 attentions (two self, the cross attention's two directions) is one launch
 of the masked float32 flash kernel (`ops/kernels/flash.flash_sdpa_masked`,
 36 a call), which keeps the score maps out of device memory. Elsewhere (the
 CPU, training) it is plain batched matmuls, as the JAX package runs these
 products outside any Pallas kernel: one similarity and a softmax along each
-of its axes in the cross attention. The two are the same mathematics, so no
-switch chooses between them.
+of its axes in the cross attention. The two are the same mathematics.
 
 Two choices follow the JAX package where it departs from the reference:
 flax's `nn.gelu` is the tanh approximation (the reference's `nn.GELU()`
@@ -37,18 +36,13 @@ import torch.nn as nn
 
 from gim_tpu_torch.config import LightGlueConfig
 from gim_tpu_torch.ops.attention import apply_rotary, sdpa
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.ops.kernels.flash import flash_sdpa_masked
 from gim_tpu_torch.ops.matching import (filter_matches,
                                         sigmoid_log_double_softmax)
 from gim_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6        # flax nn.LayerNorm's default
-
-
-def on_kernel(x: torch.Tensor) -> bool:
-    """Whether attention runs on the masked flash kernel: card tensors and
-    nothing for autograd to record (the kernel has no backward)."""
-    return x.device.type == "cuda" and not torch.is_grad_enabled()
 
 
 def pair_mask(valid0, valid1):
@@ -109,7 +103,7 @@ class SelfBlock(nn.Module):
         qkv = qkv.transpose(1, 2)                       # (B, H, K, hd, 3)
         q = apply_rotary(qkv[..., 0], encoding)
         k = apply_rotary(qkv[..., 1], encoding)
-        if on_kernel(x):
+        if forward_only.on_kernel(x):
             # v's stride along hd is 3: the kernel takes unit stride
             ctx = flash_sdpa_masked(q, k, qkv[..., 2].contiguous(), valid,
                                     valid)
@@ -147,7 +141,7 @@ class CrossBlock(nn.Module):
 
         v0 = split(self.to_v(x0))
         v1 = split(self.to_v(x1))
-        if on_kernel(x0):
+        if forward_only.on_kernel(x0):
             qk0, qk1 = split(self.to_qk(x0)), split(self.to_qk(x1))
             # the reference's hd^-1/4 on each side is sdpa's hd^-1/2
             m0 = flash_sdpa_masked(qk0, qk1, v1, valid0, valid1)

@@ -28,13 +28,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import tempfile
 import time
 
 import torch
 from torch.profiler import (ProfilerActivity, profile, record_function,
                             tensorboard_trace_handler)
-
-from gim_tpu_torch.utils import flags
 
 
 class _Named:
@@ -105,15 +104,28 @@ def span(name: str):
     return off
 
 
+def trace_enabled() -> bool:
+    """`GIM_TPU_TRACE`: any non-empty value turns `trace` on, as in the
+    JAX package."""
+    return bool(os.environ.get("GIM_TPU_TRACE"))
+
+
+def trace_dir() -> str:
+    """`GIM_TPU_TRACE_DIR`: where `trace` writes (default `gim_tpu_trace`
+    in the temporary directory, `/tmp` for the JAX package)."""
+    return os.environ.get("GIM_TPU_TRACE_DIR", os.path.join(
+        tempfile.gettempdir(), "gim_tpu_trace"))
+
+
 @contextlib.contextmanager
 def trace(name: str = "gim_tpu", out_dir: str | None = None):
     """`torch.profiler` trace of the block into `out_dir` (default
     `GIM_TPU_TRACE_DIR`), on when `GIM_TPU_TRACE` is set; the CUDA
     activities are traced where a card is present."""
-    if not flags.trace_enabled():
+    if not trace_enabled():
         yield
         return
-    out_dir = out_dir or flags.trace_dir()
+    out_dir = out_dir or trace_dir()
     os.makedirs(out_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

@@ -40,6 +40,7 @@ from gim_tpu_torch.config import DKMConfig
 from gim_tpu_torch.models.dkm import blocks as tb
 from gim_tpu_torch.models.dkm import model as tm
 from gim_tpu_torch.models.dkm.encoder import ResNet50Pyramid
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.weights import port as tport
 from tests.test_torch_roma import HIGH, _randomize, _to_jax_tree
 
@@ -245,9 +246,11 @@ def test_conv_refiner_matches_jax(variables, port, monkeypatch, scale,
                                   fused):
     """DKM's variant ([cert, dx, dy], emb_scale 1) on random features and a
     flow that leaves the image; scales 4 and 16 with local correlation.
-    With the switch on, the hidden blocks of scales 1 and 2 take K2 (its
-    plain version on the CPU) and JAX runs its Pallas kernel
-    (GIM_TPU_FUSED_REFINER=force, interpret mode)."""
+    With `fused`, the port's kernel rule is forced on, so the hidden
+    blocks of scales 1 and 2 take K2 (its plain version on the CPU), and
+    JAX runs its Pallas kernel (GIM_TPU_FUSED_REFINER=force, interpret
+    mode)."""
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: fused)
     monkeypatch.setenv("GIM_TPU_FUSED_REFINER", "force" if fused else "0")
     in_dim, hid, emb, rad = tm.REFINER_SPECS[scale]
     # the sizes of the tiny model's coarse pass, which the decoder test
@@ -265,7 +268,7 @@ def test_conv_refiner_matches_jax(variables, port, monkeypatch, scale,
                                     local_corr_radius=rad),
                      v, jnp.asarray(x), jnp.asarray(y), jnp.asarray(flow))
     ref = port.decoder.conv_refiner[scale]
-    assert ref.fuses_hidden_blocks() == (fused and hid <= 192)
+    assert ref.fuses_hidden_blocks(_nchw(x)) == (fused and hid <= 192)
     with torch.no_grad():
         got = ref(_nchw(x), _nchw(y), torch.from_numpy(flow))
     assert got[0].shape == (2, H, W, 1) and got[1].shape == (2, H, W, 2)

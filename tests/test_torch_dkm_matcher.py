@@ -30,6 +30,7 @@ from gim_tpu.weights import port as jport
 from gim_tpu_torch import api
 from gim_tpu_torch.api import Matcher, match_fn
 from gim_tpu_torch.config import DKMConfig, GimConfig
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.weights import port as tport
 from tests.test_torch_dkm import (TINY, jit_apply,  # noqa: F401
                                   port, variables)
@@ -117,9 +118,10 @@ def jax_forward(variables):  # noqa: F811
 def test_dkm_matcher_matches_jax(port, jax_forward,  # noqa: F811
                                  monkeypatch, masked, switch):
     """warp and certainty against the JAX package's default graph, in
-    both input modes, with GIM_TPU_FUSED_REFINER off and on (the hidden
-    blocks of scales 2 and 1 then take K2's plain version on the CPU)."""
-    monkeypatch.setenv("GIM_TPU_FUSED_REFINER", switch)
+    both input modes, with the port's kernel rule as on the CPU ("0") and
+    forced on ("1": the hidden blocks of scales 2 and 1 then take K2's
+    plain version on the CPU)."""
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: switch == "1")
     want_w, want_c, _ = jax_forward[masked]
     args = [None if a is None else torch.from_numpy(a)
             for a in _model_inputs(masked)]

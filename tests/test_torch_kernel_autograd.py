@@ -10,13 +10,20 @@ K1's CPU path runs the plain sweeps, not the dense recipe), and a backward
 through the result raises `KernelBackwardError` naming the kernel, as
 `jax.grad` through the JAX package's Pallas kernels raises. Under
 `torch.no_grad` the results carry no autograd node at all.
+
+The kernel rule (`forward_only.on_kernel`) sends a tensor to a kernel on
+the card, in bf16 or float32, inside inference mode only; it reads a
+tensor's device and dtype, so a stand-in with a CUDA device asks it
+without a card.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from gim_tpu_torch.ops.kernels import dsmax, flash, refiner
+from gim_tpu_torch.ops.kernels import dsmax, flash, forward_only, refiner
 from gim_tpu_torch.ops.kernels.forward_only import KernelBackwardError
 
 
@@ -72,3 +79,19 @@ def test_kernel_forward_equals_plain_and_backward_raises(name):
 
     with torch.no_grad():
         assert _float_out(kernel(*leaves, *rest)).grad_fn is None
+
+
+MODES = {"inference": torch.inference_mode, "no_grad": torch.no_grad,
+         "grad": torch.enable_grad}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_kernel_rule(device, mode, dtype):
+    x = SimpleNamespace(device=torch.device(device),
+                        dtype=getattr(torch, dtype))
+    with MODES[mode]():
+        got = forward_only.on_kernel(x)
+    assert got == (device == "cuda" and mode == "inference"
+                   and dtype != "float64")

@@ -30,6 +30,7 @@ from gim_tpu_torch.config import LightGlueConfig
 from gim_tpu_torch.models import lightglue as tlg
 from gim_tpu_torch.ops.attention import sdpa
 from gim_tpu_torch.ops.kernels import flash as K
+from gim_tpu_torch.ops.kernels import forward_only
 
 TOL = 2e-4
 NEG = np.float32(-1e30)
@@ -247,7 +248,7 @@ def test_training_on_the_cpu_takes_the_plain_products(monkeypatch):
     monkeypatch.setattr(tlg, "flash_sdpa_masked", refuse)
     before = dict(K.LAUNCHES)
     with torch.enable_grad():
-        assert not tlg.on_kernel(args[2])
+        assert not forward_only.on_kernel(args[2])
         got = model(*args)
     assert K.LAUNCHES == before
     assert got["log_assignment"].requires_grad
@@ -270,7 +271,7 @@ def test_kernel_path_agrees_with_the_plain_products(monkeypatch):
         calls.append((tuple(q.shape), tuple(k.shape)))
         return K.flash_sdpa_masked(q, k, v, q_valid, k_valid)
 
-    monkeypatch.setattr(tlg, "on_kernel", lambda x: True)
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: True)
     monkeypatch.setattr(tlg, "flash_sdpa_masked", counted)
     with torch.no_grad():
         got = model(*args)

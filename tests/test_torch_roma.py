@@ -42,17 +42,18 @@ from gim_tpu.weights import port as jport
 from gim_tpu_torch.api import Matcher, match_fn
 from gim_tpu_torch.config import GimConfig, RoMaConfig
 from gim_tpu_torch.models.roma import RoMaMatcher
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.weights import port as tport
 
 HIGH = jax.default_matmul_precision("highest")
 TINY = dict(coarse_res=56, upsample_res=(112, 112), cls_to_coord_res=8,
             num_decoder_blocks=1, num_samples=32, dino_depth=1)
-SWITCHES = ("GIM_TPU_FUSED_REFINER", "GIM_TPU_FLASH_VIT")
 
 
-def _switches(monkeypatch, value: str):
-    for k in SWITCHES:
-        monkeypatch.setenv(k, value)
+def _kernels(monkeypatch, on: bool):
+    """The port's kernel rule forced: K2 and K3 take their plain versions
+    on the CPU where it holds."""
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: on)
 
 
 @torch.no_grad()
@@ -150,9 +151,9 @@ def _flat(tree, prefix=""):
 def test_roma_matcher_matches_jax(variables, jax_forward, monkeypatch,
                                   switches):
     """warp and certainty against the JAX package's default graph, with
-    the port's switches off (its default graph) and on (K2 and K3's plain
-    versions on the CPU)."""
-    _switches(monkeypatch, switches)
+    the port's kernel rule as on the CPU ("0": its default graph) and
+    forced on ("1": K2 and K3's plain versions on the CPU)."""
+    _kernels(monkeypatch, switches == "1")
     img0, img1, want_w, want_c = jax_forward
     with torch.inference_mode():
         warp, cert = _port_model(variables)(torch.from_numpy(img0),
@@ -169,8 +170,9 @@ def test_roma_matcher_matches_jax_kernels(variables, jax_forward,
                                           monkeypatch):
     """The JAX package with its two kernels on (the Pallas refiner block
     forced, flash attention in interpret mode) against the port with its
-    switches on."""
-    _switches(monkeypatch, "1")
+    kernel rule forced on."""
+    _kernels(monkeypatch, True)
+    monkeypatch.setenv("GIM_TPU_FLASH_VIT", "1")             # JAX's side
     monkeypatch.setenv("GIM_TPU_FUSED_REFINER", "force")
     img0, img1, _, _ = jax_forward
     with HIGH:

@@ -25,6 +25,7 @@ from gim_tpu_torch.models.dinov2 import DinoViT
 from gim_tpu_torch.models.dkm import blocks as tb
 from gim_tpu_torch.models.dkm.model import sample_matches
 from gim_tpu_torch.models.roma import RoMaMatcher, cls_to_flow_refine
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.ops.resize import nearest_indices, bicubic_matrix
 from gim_tpu_torch.weights import port as tport
 from tests.test_torch_roma import (HIGH, TINY, _flat, _port_model,
@@ -217,9 +218,11 @@ def test_cls_to_flow_refine_with_planted_ties_matches_jax():
                                          ("4", False), ("16", False)])
 def test_conv_refiner_matches_jax(variables, monkeypatch, scale, fused):
     """One refiner of the tiny model on random features and a flow that
-    leaves the image; with the switch on, the hidden blocks of the narrow
-    scales take K2 (its plain version on the CPU), and JAX runs its Pallas
-    kernel (GIM_TPU_FUSED_REFINER=force, interpret mode)."""
+    leaves the image; with `fused` the port's kernel rule is forced on,
+    so the hidden blocks of the narrow scales take K2 (its plain version
+    on the CPU), and JAX runs its Pallas kernel
+    (GIM_TPU_FUSED_REFINER=force, interpret mode)."""
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: fused)
     monkeypatch.setenv("GIM_TPU_FUSED_REFINER", "force" if fused else "0")
     C = jr.PROJ_SPECS[scale][1]
     H, W = (20, 24) if scale in ("1", "2") else (8, 10)
@@ -239,7 +242,8 @@ def test_conv_refiner_matches_jax(variables, monkeypatch, scale, fused):
             disp_first=True).apply(jvars, jnp.asarray(x), jnp.asarray(y),
                                    jnp.asarray(flow), emb_scale=1.25)
     ref = _port_model(variables).decoder.conv_refiner[scale]
-    assert ref.fuses_hidden_blocks() == (fused and hid <= 192)
+    assert ref.fuses_hidden_blocks(torch.from_numpy(x)) == (
+        fused and hid <= 192)
     with torch.no_grad():
         got_c, got_d = ref(torch.from_numpy(x).permute(0, 3, 1, 2),
                            torch.from_numpy(y).permute(0, 3, 1, 2),
@@ -254,7 +258,10 @@ def test_conv_refiner_matches_jax(variables, monkeypatch, scale, fused):
                                       ((28, 28), False)])
 def test_dinovit_matches_jax(monkeypatch, hw, flash):
     """A narrow DINOv2 (64 wide, 4 heads, 2 blocks, pretrained grid 2 x 2):
-    56 x 42 resizes the position grid to 4 x 3, 28 x 28 keeps it."""
+    56 x 42 resizes the position grid to 4 x 3, 28 x 28 keeps it. With
+    `flash` the port's kernel rule is forced on (K3's plain version on the
+    CPU) and JAX runs its flash kernel (GIM_TPU_FLASH_VIT=1)."""
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: flash)
     monkeypatch.setenv("GIM_TPU_FLASH_VIT", "1" if flash else "0")
     kw = dict(embed_dim=64, depth=2, num_heads=4, patch_size=14,
               pretrain_img_size=28)

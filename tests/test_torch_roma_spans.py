@@ -20,6 +20,7 @@ from benchmark.harness.spans import Spans
 from benchmark.harness.trace import Traced
 from gim_tpu_torch import config as C
 from gim_tpu_torch.api import Matcher
+from gim_tpu_torch.ops.kernels import forward_only
 
 RES, DEPTH, BLOCKS = 56, 2, 5
 SCALES = ("16", "8", "4", "2", "1")
@@ -51,10 +52,10 @@ def match(matcher, pair):
 
 @pytest.fixture(scope="module")
 def traced(matcher, pair):
-    # both switches on: K2 and K3 run their plain versions on the CPU
+    # the kernel rule forced on: K2 and K3 run their plain versions on the
+    # CPU
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("GIM_TPU_FUSED_REFINER", "1")
-        mp.setenv("GIM_TPU_FLASH_VIT", "1")
+        mp.setattr(forward_only, "on_kernel", lambda x: True)
         off = match(matcher, pair)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             on = match(matcher, pair)
@@ -128,7 +129,7 @@ def test_the_wrapper_on_flash_sdpa_sees_every_attention(matcher, pair,
     """`Attention.forward` looks `flash_sdpa` up at call time, so the
     benchmark's span sees DINOv2's and the decoder's attentions with their
     (B, H, N, D) shapes."""
-    monkeypatch.setenv("GIM_TPU_FLASH_VIT", "1")
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: True)
     metric = registry.metric("flash_attention_roofline")
     spans = Spans(matcher.model)
     for name, target in metric.SPANS.items():

@@ -31,12 +31,13 @@ every bound is measured at this size (in brackets), then given room:
   after the update (99.6 %) and every one within 2 lr, DINOv2's included
   (AdamW decays them, in both packages);
 - the port's loss falls over 3 steps (the port alone);
-- with GIM_TPU_FLASH_VIT=1 the step's forward runs (DINOv2 and the
-  coordinate decoder through `flash_sdpa`) and its backward raises at the
-  decoder's attention (`KernelBackwardError`), where JAX's step fails.
+- a training step takes no kernel route (K2, K3, K3's masked variant)
+  even where the kernel rule sees card tensors: a step is never in
+  inference mode, its frozen DINOv2 runs under plain `no_grad`.
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -49,8 +50,10 @@ from gim_tpu.models.roma import model as jr
 from gim_tpu.train import dense_losses as JD
 from gim_tpu.weights import port as jport
 from gim_tpu_torch.config import RoMaConfig, TrainerConfig
+from gim_tpu_torch.models import dinov2, lightglue
+from gim_tpu_torch.models.dkm import blocks
 from gim_tpu_torch.models.roma import RoMaMatcher
-from gim_tpu_torch.ops.kernels.forward_only import KernelBackwardError
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.train import dense_losses as TD
 from gim_tpu_torch.train import loop
 from gim_tpu_torch.weights import port as tport
@@ -189,16 +192,37 @@ def test_port_loss_falls_over_three_steps(variables, batch):
 
 def test_flash_switch_runs_forward_and_refuses_backward(variables, batch,
                                                         monkeypatch):
-    """GIM_TPU_FLASH_VIT=1: DINOv2 (under no_grad) and the coordinate
-    decoder take `flash_sdpa`; the loss is the switch-off loss (on the
-    CPU the kernel's plain version runs), and the backward stops at the
-    decoder's attention, as `jax.grad` through the Pallas kernel does."""
-    tb = torch_batch(batch)
-    with torch.no_grad():
-        off, _ = TD.dense_loss(port_model(variables), tb)
-    monkeypatch.setenv("GIM_TPU_FLASH_VIT", "1")
+    """A whole training step takes no kernel route, even where the kernel
+    rule (`forward_only.on_kernel`) is shown each tensor as a card tensor
+    of its dtype: DINOv2 (under no_grad) and the coordinate decoder ask it
+    at every attention and hear no, the refiners in train_mode do not
+    fuse, and no kernel wrapper (K2, K3, K3's masked variant) is called;
+    the step's backward runs through."""
+    rule = forward_only.on_kernel
+    asked = []
+
+    def as_on_card(x):
+        card = SimpleNamespace(device=torch.device("cuda"), dtype=x.dtype)
+        asked.append(rule(card))
+        return asked[-1]
+
+    def refuse(name):
+        def kernel(*args):
+            raise AssertionError(f"{name} called in a training step")
+        return kernel
+
+    monkeypatch.setattr(forward_only, "on_kernel", as_on_card)
+    monkeypatch.setattr(blocks, "fused_dw_block", refuse("K2"))
+    monkeypatch.setattr(dinov2, "flash_sdpa", refuse("K3"))
+    monkeypatch.setattr(lightglue, "flash_sdpa_masked", refuse("masked K3"))
     model = port_model(variables)
-    loss, _ = TD.dense_loss(model, tb)
-    assert torch.equal(loss.detach(), off)
-    with pytest.raises(KernelBackwardError, match="flash_attention"):
-        loss.backward()
+    opt, sched = loop.make_optimizer(model.parameters(), TrainerConfig(), 1,
+                                     1, 100)
+    logs = TD.dense_train_step(model, opt, sched, torch_batch(batch))
+    assert np.isfinite(float(logs["loss"]))
+    # DINOv2's 2 blocks and the decoder's one, each on f1 and f2 at least
+    assert len(asked) >= 3 and not any(asked), asked
+    # the same card tensors in inference mode would take the kernels
+    with torch.inference_mode():
+        assert rule(SimpleNamespace(device=torch.device("cuda"),
+                                    dtype=torch.float32))

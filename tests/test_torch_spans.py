@@ -24,6 +24,7 @@ from benchmark.tests.test_bench_trace import Ev
 from gim_tpu_torch import config as C
 from gim_tpu_torch.api import MatchResult, Matcher
 from gim_tpu_torch.eval import zeb as E
+from gim_tpu_torch.ops.kernels import forward_only
 from gim_tpu_torch.utils import profiling as tprof
 
 N_LAYERS = LIGHTGLUE["config"]["gim_config"]["lightglue"]["n_layers"]
@@ -109,7 +110,7 @@ def inside(spans, child: str, parent: str) -> bool:
 @pytest.fixture(scope="module")
 def traced(matchers, pair):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("GIM_TPU_FUSED_REFINER", "1")
+        mp.setattr(forward_only, "on_kernel", lambda x: True)
         off = run_paths(matchers, pair)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             on = run_paths(matchers, pair)
@@ -197,7 +198,7 @@ def test_no_span_is_built_while_no_profiler_records(matchers, pair,
         return record_function(name)
 
     monkeypatch.setattr(tprof, "record_function", counting)
-    monkeypatch.setenv("GIM_TPU_FUSED_REFINER", "1")
+    monkeypatch.setattr(forward_only, "on_kernel", lambda x: True)
     assert not tprof.recording()
     run_paths(matchers, pair)
     assert built == []

@@ -9,7 +9,6 @@ import torch
 
 from gim_tpu.utils import logging as jlog
 from gim_tpu.utils import profiling as jprof
-from gim_tpu_torch.utils import flags
 from gim_tpu_torch.utils import logging as tlog
 from gim_tpu_torch.utils import profiling as tprof
 
@@ -58,7 +57,7 @@ def test_trace_is_off_unless_asked_and_writes_a_trace(tmp_path, monkeypatch):
     assert not (tmp_path / "off").exists()
     monkeypatch.setenv("GIM_TPU_TRACE", "1")
     monkeypatch.setenv("GIM_TPU_TRACE_DIR", str(tmp_path / "on"))
-    assert flags.trace_enabled() and flags.trace_dir() == str(tmp_path / "on")
+    assert tprof.trace_enabled() and tprof.trace_dir() == str(tmp_path / "on")
     with tprof.trace("smoke"):
         with tprof.TraceAnnotation("inner"):
             torch.ones(4).sum()
